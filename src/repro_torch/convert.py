@@ -1,0 +1,56 @@
+"""Carry the reference package's objects across to the port.
+
+The JAX package's keys, ciphertexts, diagonal sets and hemm plans hold
+arrays that ``np.asarray`` reads; these functions turn them into the
+port's objects on a device, keeping every u32 residue bit for bit.  They
+read attributes only and import nothing of JAX or of ``repro``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.ckks import Ciphertext, EvalKey, Keys
+from repro_torch.core.hemm import HeMMPlan
+from repro_torch.core.hlt import DiagSet
+from repro_torch.core.params import u32_tensor
+
+
+def u32(a, device) -> torch.Tensor:
+    """Any uint32 array (numpy, or an array numpy can read) -> int32 tensor."""
+    return u32_tensor(np.asarray(a), device)
+
+
+def eval_key(k, device) -> EvalKey:
+    return EvalKey(k0=u32(k.k0, device), k1=u32(k.k1, device))
+
+
+def keys(k, device) -> Keys:
+    """Keys: ``rot`` and ``galois`` keep sharing one EvalKey per Galois
+    element, as the reference's do."""
+    galois = {int(g): eval_key(ek, device) for g, ek in k.galois.items()}
+    by_id = {id(ek): galois[int(g)] for g, ek in k.galois.items()}
+    rot = {int(r): by_id[id(ek)] if id(ek) in by_id else eval_key(ek, device)
+           for r, ek in k.rot.items()}
+    return Keys(s_eval=u32(k.s_eval, device),
+                evk_mult=eval_key(k.evk_mult, device), rot=rot, galois=galois)
+
+
+def ciphertext(ct, device) -> Ciphertext:
+    return Ciphertext(c0=u32(ct.c0, device), c1=u32(ct.c1, device),
+                      level=int(ct.level), scale=float(ct.scale))
+
+
+def diagset(ds, device) -> DiagSet:
+    return DiagSet(zs=tuple(int(z) for z in ds.zs), pt=u32(ds.pt, device),
+                   scale=float(ds.scale), shape=tuple(ds.shape))
+
+
+def hemm_plan(plan, device) -> HeMMPlan:
+    return HeMMPlan(
+        m=plan.m, l=plan.l, n=plan.n,
+        ds_sigma=diagset(plan.ds_sigma, device),
+        ds_tau=diagset(plan.ds_tau, device),
+        ds_eps=[diagset(ds, device) for ds in plan.ds_eps],
+        ds_omega=[diagset(ds, device) for ds in plan.ds_omega],
+        rot_steps=tuple(int(r) for r in plan.rot_steps))

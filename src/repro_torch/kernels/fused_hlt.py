@@ -1,0 +1,77 @@
+"""Slot-indexed batched MO-HLT rotation datapath — counterpart of
+``repro/kernels/fused_hlt.py`` ``fused_hlt_indexed``.
+
+Per batch element b (hoisting product ``ct_slots[b]``, diagonal set
+``diag_slots[b]``) and every rotation r of that set: Automorph (gather by
+``perms``) → KeyIP (β Montgomery MACs against the rotation-key rows) →
+DiagIP (× diagonal), accumulated over all d rotations; ``is_id`` entries
+bypass KeyIP with (P·c0, P·c1).
+
+Shapes: digits (H, β, M, N); c0e/c1e (H, M, N); u (S, d, M, N);
+rk0/rk1 (S, d, β, M, N); perms (S, d, N) int32; is_id (S, d, 1) int32;
+ct_slots/diag_slots (B,) int32; q32/qneg (M, 1).  Both versions return
+one (2, B, M, N) tensor — acc0 then acc1 — so the merged ModDown after it
+runs over all 2·B polynomials in one launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import modmath as mm
+from repro_torch.kernels import build
+
+LAUNCHES = {"fused_hlt_indexed": 0}
+
+
+def fused_hlt_indexed_plain(digits, c0e, c1e, u, rk0, rk1, perms, is_id,
+                            ct_slots, diag_slots, q32, qneg):
+    B = ct_slots.shape[0]
+    _, nbeta, M, N = digits.shape
+    d = u.shape[1]
+    out = torch.empty((2, B, M, N), dtype=torch.int32, device=digits.device)
+    cts = ct_slots.tolist()
+    dgs = diag_slots.tolist()
+    ids = is_id[..., 0].tolist()
+    for b in range(B):
+        h, s = cts[b], dgs[b]
+        dig, c0, c1 = digits[h], c0e[h], c1e[h]
+        a0 = torch.zeros((M, N), dtype=torch.int32, device=digits.device)
+        a1 = torch.zeros_like(a0)
+        for r in range(d):
+            if ids[s][r]:
+                t0, t1 = c0, c1
+            else:
+                pm = perms[s, r].to(torch.int64)
+                dig_rot = dig[..., pm]                       # Automorph
+                k0 = mm.montsum(mm.montmul(dig_rot, rk0[s, r], q32, qneg),
+                                q32, axis=0)                 # KeyIP
+                k1 = mm.montsum(mm.montmul(dig_rot, rk1[s, r], q32, qneg),
+                                q32, axis=0)
+                t0 = mm.montadd(k0, c0[:, pm], q32)
+                t1 = k1
+            a0 = mm.montadd(a0, mm.montmul(u[s, r], t0, q32, qneg), q32)
+            a1 = mm.montadd(a1, mm.montmul(u[s, r], t1, q32, qneg), q32)
+        out[0, b] = a0
+        out[1, b] = a1
+    return out
+
+
+def fused_hlt_indexed_cuda(digits, c0e, c1e, u, rk0, rk1, perms, is_id,
+                           ct_slots, diag_slots, q32, qneg):
+    H, nbeta, M, N = digits.shape
+    S, d = u.shape[:2]
+    B = ct_slots.shape[0]
+    name = "fused_hlt_indexed"
+    dev = digits.device
+    build.check(name, digits, torch.int32)
+    build.check_tables(name, dev, (c0e, (H, M, N)), (c1e, (H, M, N)),
+                       (u, (S, d, M, N)), (rk0, (S, d, nbeta, M, N)),
+                       (rk1, (S, d, nbeta, M, N)), (perms, (S, d, N)),
+                       (is_id, (S, d, 1)), (ct_slots, (B,)),
+                       (diag_slots, (B,)), (q32, (M, 1)), (qneg, (M, 1)))
+    out = torch.empty((2, B, M, N), dtype=torch.int32, device=dev)
+    build.call("fused_hlt_indexed_launch", digits, c0e, c1e, u, rk0, rk1,
+               perms, is_id, ct_slots, diag_slots, q32, qneg, out, B, nbeta,
+               M, N, d)
+    LAUNCHES[name] += 1
+    return out
