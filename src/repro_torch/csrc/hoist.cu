@@ -1,30 +1,32 @@
 // hoist_bc_ntt: the second half of the batched hoist — ModUp BaseConv of one
 // digit's scaled coefficient rows onto one target limb (HPS, float64 floor
 // correction), forward NTT, and the digit's own limbs passed through.
-// The first half (iNTT · q̂^-1 of all B·β·α digit rows) is intt_scale.cu.
+// The first half (iNTT · q̂^-1 of all B·nq limb rows) is intt_scale.cu.
 //
 // Replaces: src/repro/kernels/basechange.py:hoist_db (the TPU kernel,
-// grid over ciphertexts, with a 2-slot DMA ping-pong).  The ping-pong
-// exists only because the TPU runs its grid in order; here many blocks in
-// flight hide the copy, so the hoist is two launches computing the same
-// function.
+// grid over ciphertexts, with a 2-slot DMA ping-pong over a zero-padded
+// (β·α + M)-row copy of each c1).  The ping-pong exists only because the
+// TPU runs its grid in order; here many blocks in flight hide the copy, so
+// the hoist is two launches computing the same function, and both read c1
+// in place: digit j's rows are c1 rows j·α.. (the last digit may be short;
+// the reference's padded rows contribute exactly zero, so they are skipped).
 //
-// Bound on an H100: bytes.  Per ciphertext it reads the β·α scaled rows
-// once per target limb (L2 serves the repeats: one ciphertext's rows are
-// ≤ 2 MB at Set-B), the passthrough rows, and writes β·M output rows; the
-// BaseConv is α Montgomery MACs and α float64 MACs per output value.
-// Design: one block per (target limb, digit, ciphertext); the BaseConv
-// result lands straight in shared memory, where the NTT runs all stages;
-// own-limb blocks only copy their passthrough row.
+// Bound on an H100: bytes.  Per ciphertext the function reads its nq c1
+// rows and writes β·M output rows; the scaled rows are re-read once per
+// target limb (L2 serves the repeats: one ciphertext's rows are ≤ 2 MB at
+// Set-B); the BaseConv is α Montgomery MACs and α float64 MACs per output
+// value.  Design: one block per (target limb, digit, ciphertext); the
+// BaseConv result lands straight in shared memory, where the NTT runs all
+// stages; own-limb blocks only copy their passthrough row.
 #include "common.cuh"
 
 namespace {
 
 __global__ void hoist_bc_ntt_kernel(const uint32_t* __restrict__ y,
-                                    const uint32_t* __restrict__ pt,
-                                    long long pt_bstride,
+                                    const uint32_t* __restrict__ c1,
+                                    long long c1_bstride,
                                     uint32_t* __restrict__ out, int nbeta,
-                                    int alpha, int M, int logN,
+                                    int alpha, int nq, int M, int logN,
                                     const uint32_t* __restrict__ w,
                                     const uint32_t* __restrict__ dmod,
                                     const double* __restrict__ inv_d,
@@ -39,20 +41,21 @@ __global__ void hoist_bc_ntt_kernel(const uint32_t* __restrict__ y,
   const int N = 1 << logN;
   uint32_t* o = out + ((b * nbeta + j) * M + m) * static_cast<long long>(N);
   if (mask[j * M + m] != 0u) {                 // digit's own limb: passthrough
-    const uint32_t* src = pt + b * pt_bstride + static_cast<long long>(m) * N;
+    const uint32_t* src = c1 + b * c1_bstride + static_cast<long long>(m) * N;
     for (int c = threadIdx.x; c < N; c += blockDim.x) o[c] = src[c];
     return;
   }
   const uint32_t q = q32[m], qn = qneg[m];
+  const int na = min(alpha, nq - j * alpha);   // the digit's real rows
   const uint32_t* yj =
-      y + (b * nbeta * alpha + static_cast<long long>(j) * alpha) * N;
+      y + (b * nq + static_cast<long long>(j) * alpha) * N;
   const uint32_t* wr = w + (static_cast<long long>(j) * M + m) * alpha;
   const double* id = inv_d + static_cast<long long>(j) * alpha;
   const uint32_t dm = dmod[j * M + m];
   for (int c = threadIdx.x; c < N; c += blockDim.x) {
     double fs = 0.0;
     uint32_t acc = 0u;
-    for (int a = 0; a < alpha; ++a) {
+    for (int a = 0; a < na; ++a) {
       const uint32_t yv = yj[static_cast<long long>(a) * N + c];
       fs = a == 0 ? __dmul_rn(static_cast<double>(yv), id[0])
                   : fame::fmac_nofuse(fs, yv, id[a]);
@@ -68,20 +71,21 @@ __global__ void hoist_bc_ntt_kernel(const uint32_t* __restrict__ y,
 
 }  // namespace
 
-extern "C" int hoist_bc_ntt_launch(const uint32_t* y, const uint32_t* pt,
-                                   long long pt_bstride, uint32_t* out, int B,
-                                   int nbeta, int alpha, int M, int logN,
-                                   const uint32_t* w, const uint32_t* dmod,
-                                   const double* inv_d, const uint32_t* psi,
-                                   const uint32_t* q32, const uint32_t* qneg,
-                                   const uint32_t* mask, void* stream) {
+extern "C" int hoist_bc_ntt_launch(const uint32_t* y, const uint32_t* c1,
+                                   long long c1_bstride, uint32_t* out, int B,
+                                   int nbeta, int alpha, int nq, int M,
+                                   int logN, const uint32_t* w,
+                                   const uint32_t* dmod, const double* inv_d,
+                                   const uint32_t* psi, const uint32_t* q32,
+                                   const uint32_t* qneg, const uint32_t* mask,
+                                   void* stream) {
   cudaError_t err = fame::reserve_row_smem(hoist_bc_ntt_kernel, logN);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(M, nbeta, B);
   hoist_bc_ntt_kernel<<<grid, fame::row_threads(logN), sizeof(uint32_t) << logN,
                         static_cast<cudaStream_t>(stream)>>>(
-      y, pt, pt_bstride, out, nbeta, alpha, M, logN, w, dmod, inv_d, psi, q32,
-      qneg, mask);
+      y, c1, c1_bstride, out, nbeta, alpha, nq, M, logN, w, dmod, inv_d, psi,
+      q32, qneg, mask);
   return static_cast<int>(cudaGetLastError());
 }
 

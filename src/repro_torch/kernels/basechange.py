@@ -10,9 +10,11 @@ on-card reference) and a CUDA kernel wrapper (``csrc/intt_scale.cu``,
   HPS BaseConv (float64 floor correction) → NTT, own rows passed through.
   The TPU kernel double-buffers its copy-in because its grid runs in
   order; on the GPU many blocks in flight hide the copy, so the CUDA form
-  is two launches (the ``intt_scale`` kernel over all B·β·α digit rows,
+  is two launches (the ``intt_scale`` kernel over all B·nq limb rows,
   then a BaseConv+NTT+passthrough kernel over (B, β, M) blocks) that
-  together compute the same function.
+  together compute the same function.  Both read the ciphertexts' c1 rows
+  in place: digit j's rows are c1 rows j·α.., and the TPU's zero-padded
+  operand layout is not rebuilt.
 * ``moddown_finish`` — BaseConv from the nd drop-basis rows → NTT →
   (x − conv)·P⁻¹, over a leading batch of polynomials in one launch.
 
@@ -72,18 +74,22 @@ def _baseconv_ntt_plain(y, w, d, inv_d, psi_m, q32, qneg):
     return core_ntt.ntt_mont_raw(conv, psi_m, q32, qneg)
 
 
-def hoist_db_plain(xcat, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
+def hoist_db_plain(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
                    psi_m, q_full, qneg_full, mask, *, nbeta: int, alpha: int):
-    """xcat: (B, nbeta·alpha + M, N) — per ciphertext the digit-padded c1
-    rows then the full-basis-padded c1 rows.  Returns (B, nbeta, M, N)."""
-    R = nbeta * alpha
-    y = intt_scale_plain(xcat[:, :R], psii_m, ninv_m, hat_m, q_pad, qneg_pad)
-    c1f = xcat[:, R:]
+    """c1s: (B, nq, N) eval-domain main limbs.  Digit j owns c1s rows
+    j·alpha.. (the last digit may be short: its padded table rows would
+    contribute exactly zero, so they are skipped).  Returns (B, nbeta, M, N),
+    the own rows passed through from c1s."""
+    nq = c1s.shape[1]
+    y = intt_scale_plain(c1s, psii_m[:nq], ninv_m[:nq], hat_m[:nq], q_pad[:nq],
+                         qneg_pad[:nq])
     outs = []
     for j in range(nbeta):
-        res = _baseconv_ntt_plain(y[:, j * alpha:(j + 1) * alpha], w[j], d[j],
-                                  inv_d[j], psi_m, q_full, qneg_full)
-        outs.append(torch.where(mask[j] != 0, c1f, res))
+        na = min(alpha, nq - j * alpha)
+        res = _baseconv_ntt_plain(y[:, j * alpha:j * alpha + na], w[j][:, :na],
+                                  d[j], inv_d[j][:na], psi_m, q_full, qneg_full)
+        top = torch.where(mask[j][:nq] != 0, c1s, res[:, :nq])
+        outs.append(torch.cat([top, res[:, nq:]], dim=1))
     return torch.stack(outs, dim=1)
 
 
@@ -157,28 +163,30 @@ def intt_scale_cuda(x, psii_m, ninv_m, scale_m, q32, qneg):
     return out[0] if squeeze else out
 
 
-def hoist_db_cuda(xcat, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
+def hoist_db_cuda(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
                   psi_m, q_full, qneg_full, mask, *, nbeta: int, alpha: int):
-    B, rows, N = xcat.shape
+    """c1s: (B, nq, N) int32 on CUDA, rows contiguous (any batch stride)."""
+    B, nq, N = c1s.shape
     R = nbeta * alpha
     M = psi_m.shape[0]
-    if rows != R + M:
-        raise ValueError(f"hoist_db: xcat has {rows} rows, want {R}+{M}")
+    if not R - alpha < nq <= R:
+        raise ValueError(f"hoist_db: {nq} limbs for {nbeta} digits of "
+                         f"{alpha}")
     logN = _logn(N)
-    build.check("hoist_db", xcat, torch.int32, rows_contiguous=True)
-    build.check_tables("hoist_db", xcat.device, (psii_m, (R, N)),
+    build.check("hoist_db", c1s, torch.int32, rows_contiguous=True)
+    build.check_tables("hoist_db", c1s.device, (psii_m, (R, N)),
                        (ninv_m, (R, 1)), (hat_m, (R, 1)), (q_pad, (R, 1)),
                        (qneg_pad, (R, 1)), (w, (nbeta, M, alpha)),
                        (d, (nbeta, M, 1)), (psi_m, (M, N)), (q_full, (M, 1)),
                        (qneg_full, (M, 1)), (mask, (nbeta, M, 1)))
-    build.check_tables("hoist_db", xcat.device, (inv_d, (nbeta, alpha, 1)),
+    build.check_tables("hoist_db", c1s.device, (inv_d, (nbeta, alpha, 1)),
                        dtype=torch.float64)
-    y = _launch_intt_scale(xcat, xcat.stride(0), B, R, logN, psii_m, ninv_m,
+    # digit rows are c1s rows: the iNTT runs over the nq real ones only
+    y = _launch_intt_scale(c1s, c1s.stride(0), B, nq, logN, psii_m, ninv_m,
                            hat_m, q_pad, qneg_pad)
-    out = torch.empty((B, nbeta, M, N), dtype=torch.int32, device=xcat.device)
-    pt = xcat[:, R:]
-    build.call("hoist_bc_ntt_launch", y, pt, xcat.stride(0), out, B, nbeta,
-               alpha, M, logN, w, d, inv_d, psi_m, q_full, qneg_full, mask)
+    out = torch.empty((B, nbeta, M, N), dtype=torch.int32, device=c1s.device)
+    build.call("hoist_bc_ntt_launch", y, c1s, c1s.stride(0), out, B, nbeta,
+               alpha, nq, M, logN, w, d, inv_d, psi_m, q_full, qneg_full, mask)
     LAUNCHES["hoist_db"] += 1
     return out
 

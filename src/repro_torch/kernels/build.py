@@ -35,7 +35,8 @@ SIGNATURES = {
     "intt_scale_launch": ("intt_scale",
                           [P, LL, P, I, I, I, P, P, P, P, P]),
     "hoist_bc_ntt_launch": ("hoist",
-                            [P, P, LL, P, I, I, I, I, I, P, P, P, P, P, P, P]),
+                            [P, P, LL, P, I, I, I, I, I, I, P, P, P, P, P, P,
+                             P]),
     "moddown_finish_launch": ("moddown",
                               [P, LL, P, P, I, I, I, I, P, P, P, P, P, P, P]),
     "fused_hlt_indexed_launch": ("fused_hlt",

@@ -8,8 +8,6 @@ raises, and nothing falls back to the plain version.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import basechange as _bc
 from repro_torch.kernels import fused_hlt as _fh
 
@@ -20,9 +18,9 @@ def intt_scale(x, psii_m, ninv_m, scale_m, q32, qneg):
     return _bc.intt_scale_plain(x, psii_m, ninv_m, scale_m, q32, qneg)
 
 
-def hoist_db(xcat, *tables, nbeta: int, alpha: int):
-    fn = _bc.hoist_db_cuda if xcat.is_cuda else _bc.hoist_db_plain
-    return fn(xcat, *tables, nbeta=nbeta, alpha=alpha)
+def hoist_db(c1s, *tables, nbeta: int, alpha: int):
+    fn = _bc.hoist_db_cuda if c1s.is_cuda else _bc.hoist_db_plain
+    return fn(c1s, *tables, nbeta=nbeta, alpha=alpha)
 
 
 def moddown_finish(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
@@ -57,13 +55,7 @@ def reset_launch_counts() -> None:
 def hoist_fused_db(c1s, t: dict):
     """Batched fused hoist: c1s (B, nq, N) eval-domain main limbs ->
     digits (B, nbeta, M, N), own rows passed through."""
-    B, nq, N = c1s.shape
-    R = t["psii_pad"].shape[0]
-    M = t["psi_full"].shape[0]
-    xcat = torch.zeros((B, R + M, N), dtype=torch.int32, device=c1s.device)
-    xcat[:, :nq] = c1s
-    xcat[:, R:R + nq] = c1s
-    return hoist_db(xcat, t["psii_pad"], t["ninv_pad"], t["hat_pad"],
+    return hoist_db(c1s, t["psii_pad"], t["ninv_pad"], t["hat_pad"],
                     t["q_pad"], t["qneg_pad"], t["w"], t["d"], t["inv_d"],
                     t["psi_full"], t["q_full"], t["qneg_full"], t["mask"],
                     nbeta=t["nbeta"], alpha=t["alpha"])

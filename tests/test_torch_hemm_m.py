@@ -1,6 +1,9 @@
 """The port's first slice end to end on ``fame-m-rt`` (logN 7, L 5, k 2,
 β 3), hemm 4×4×4 — the sibling of ``test_torch_hemm_s.py`` (which also
 holds the checks that need only one parameter set)."""
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -8,6 +11,7 @@ from repro_torch.core.hemm import decrypt_matrix
 from test_torch_common import assert_ct_equal, run_slice, u32
 
 NAME, SHAPE, SEED = "fame-m-rt", (4, 4, 4), 5
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -48,3 +52,25 @@ def test_launch_counts_and_hoist_slots_match_reference(s):
                (t.d, t.d_pad, t.diag_slots, t.ct_slots, t.n_ct_slots)
     assert tp.step2.n_ct_slots == 2 and tp.step2.n_diag_slots == 2 * SHAPE[1]
     assert tp.step1.d_pad > max(tp.step1.d)
+
+
+def test_smoke_rounded_division_witness(s):
+    """``chip_smoke.py``'s witness for the floor-rescale bias: with every
+    floor division of the program rounded, the product lies closer to A·B;
+    undoing the patch restores the program bit for bit."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ctx, prog = s["ctx"], s["prog"]
+    undo = smoke.round_divisions(ctx.eng)
+    try:
+        rounded = prog(s["tA"], s["tB"])
+    finally:
+        undo()
+    assert_ct_equal(s["jC"], prog(s["tA"], s["tB"]))
+    m, _, n = SHAPE
+    want = s["A"] @ s["B"]
+    floor_err = np.abs(decrypt_matrix(ctx.eng, ctx.keys, s["tC"], m, n) - want)
+    round_err = np.abs(decrypt_matrix(ctx.eng, ctx.keys, rounded, m, n) - want)
+    assert round_err.max() < floor_err.max()
