@@ -1,9 +1,10 @@
 """Carry the reference package's objects across to the port.
 
-The JAX package's keys, ciphertexts, diagonal sets and hemm plans hold
-arrays that ``np.asarray`` reads; these functions turn them into the
-port's objects on a device, keeping every u32 residue bit for bit.  They
-read attributes only and import nothing of JAX or of ``repro``.
+The JAX package's keys, ciphertexts, hoisting products, diagonal sets and
+hemm plans hold arrays that ``np.asarray`` reads; these functions turn
+them into the port's objects on a device, keeping every u32 residue bit
+for bit.  They read attributes only and import nothing of JAX or of
+``repro``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.core.ckks import Ciphertext, EvalKey, Keys
 from repro_torch.core.hemm import HeMMPlan
-from repro_torch.core.hlt import DiagSet
+from repro_torch.core.hlt import DiagSet, Hoisted
 from repro_torch.core.params import u32_tensor
 
 
@@ -39,6 +40,12 @@ def keys(k, device) -> Keys:
 def ciphertext(ct, device) -> Ciphertext:
     return Ciphertext(c0=u32(ct.c0, device), c1=u32(ct.c1, device),
                       level=int(ct.level), scale=float(ct.scale))
+
+
+def hoisted(h, device) -> Hoisted:
+    return Hoisted(digits=u32(h.digits, device), c0_ext=u32(h.c0_ext, device),
+                   c1_ext=u32(h.c1_ext, device), level=int(h.level),
+                   scale=float(h.scale))
 
 
 def diagset(ds, device) -> DiagSet:

@@ -9,10 +9,14 @@ host floats.  Randomness comes from a numpy ``Generator`` drawn in the
 reference's exact order, so the same seed gives array-equal keys and
 ciphertexts.
 
-The engine's own transforms (encode, the keyswitch inside ``mult``,
-``rescale``) are plain PyTorch, as the reference keeps them on its XLA u64
-lowering; the HLT's fused stages run on the kernels (``core/hlt.py``,
-``core/compile.py``).
+``datapath`` picks the lowering of the engine's own transforms (encode,
+decode, keygen, the keyswitch inside ``mult`` and its ModDown,
+``rescale``), as the reference's knob does: ``"xla"`` (the default) keeps
+them on the plain int64 NTT, the counterpart of the reference's u64 XLA
+lowering; ``"pallas"`` runs them through the ``ntt`` / ``intt`` kernels
+(``kernels/ntt.py``; the plain Montgomery versions on the CPU).  Both give
+the same residues.  The HLT's fused stages run on the kernels either way
+(``core/hlt.py``, ``core/compile.py``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ import torch
 from repro_torch.core import automorph, modmath as mm, ntt
 from repro_torch.core.params import HEParams, PrimeContext, get_context
 from repro_torch.core.rns import RnsTools
-from repro_torch.kernels import basechange
+from repro_torch.kernels import basechange, ops
+
+DATAPATHS = ("xla", "pallas")
 
 
 def resolve_device(device) -> torch.device:
@@ -80,10 +86,14 @@ class Keys:
 
 
 class CkksEngine:
-    """CKKS engine on one device (``None`` = CUDA; raises without a GPU)."""
+    """CKKS engine on one device (``None`` = CUDA; raises without a GPU);
+    ``datapath`` selects the (i)NTT lowering of every transform it runs."""
 
-    def __init__(self, params: HEParams, device=None):
+    def __init__(self, params: HEParams, device=None, datapath: str = "xla"):
+        if datapath not in DATAPATHS:
+            raise ValueError(f"datapath={datapath!r} not in {DATAPATHS}")
         self.params = params
+        self.datapath = datapath
         self.device = resolve_device(device)
         self.ctx: PrimeContext = get_context(params, self.device)
         self.tools = RnsTools(self.ctx)
@@ -103,9 +113,15 @@ class CkksEngine:
         return self.basis(range(ell + 1))
 
     def _ntt(self, x, view):
+        if self.datapath == "pallas":
+            return ops.ntt(x[None], view.psi_brv_mont, view.moduli_u32,
+                           view.qneg_inv)[0]
         return ntt.ntt_raw(x, view.psi_brv, view.moduli)
 
     def _intt(self, x, view):
+        if self.datapath == "pallas":
+            return ops.intt(x[None], view.psi_inv_brv_mont, view.n_inv_mont,
+                            view.moduli_u32, view.qneg_inv)[0]
         return ntt.intt_raw(x, view.psi_inv_brv, view.n_inv, view.moduli)
 
     # -- fused base-change tables (cached per level, float64 correction) -----

@@ -1,11 +1,16 @@
 """Plan → compile → execute for HE matmul on one device — counterpart of
-the single-device ``"pallas"`` batched path of ``repro/core/compile.py``::
+the single-device ``"pallas"`` schedule of ``repro/core/compile.py``::
 
     ctx = HEContext(CkksEngine(params))           # CUDA unless told "cpu"
     plan = plan_hemm(ctx.eng, m, l, n)
     ctx.keygen(rng, rot_steps=plan.rot_steps)
     prog = compile_hemm(ctx, plan, schedule="pallas", rotation_chunk=8)
     ctC = prog(ctA, ctB)
+
+``compile_hlt`` compiles one DiagSet (a single-ciphertext HLT: one
+``fused_hlt`` launch) or a sequence of them (a slot-indexed batch: one
+``fused_hlt_indexed`` launch); ``compile_hemm(..., batched=False)`` builds
+Algorithm 2 from 2 + 2·l single HLTs instead of two batched ones.
 
 The port has no cost model yet, so ``schedule`` must be ``"pallas"`` and
 ``rotation_chunk`` is explicit; it sets the d-padding (d_pad is the next
@@ -18,13 +23,13 @@ before refuse to run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
 from repro_torch.core import hlt as hlt_mod
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
-from repro_torch.core.hlt import DiagSet, Hoisted, hoist_batched
+from repro_torch.core.hlt import DiagSet, Hoisted, hoist, hoist_batched
 from repro_torch.kernels import ops
 
 SCHEDULES = ("pallas",)
@@ -86,8 +91,8 @@ class HEContext:
 
     ``counters`` are monotonic lifetime statistics (not reset by
     ``invalidate``): ``hlt_launches`` counts CompiledHLT calls (one
-    slot-indexed rotation-datapath launch each) and ``program_launches``
-    counts HEMMProgram calls."""
+    rotation-datapath launch each) and ``program_launches`` counts
+    HEMMProgram calls."""
 
     def __init__(self, eng: CkksEngine, keys: Optional[Keys] = None):
         self.eng = eng
@@ -141,7 +146,8 @@ def _check_schedule(schedule: str, rotation_chunk) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class HLTPlan:
-    """One compiled batched HLT.  ``d`` holds each batch element's real
+    """One compiled HLT: ``batch`` is ``None`` for a single-ciphertext
+    compile, else the batch size.  ``d`` holds each batch element's real
     diagonal count and ``d_pad`` the common padded rotation count (a
     ``chunk`` multiple); ``diag_slots`` maps batch index -> unique
     diagonal-set slot; ``ct_slots`` is the compile-time input-aliasing hint
@@ -149,7 +155,7 @@ class HLTPlan:
 
     schedule: str
     level: int
-    batch: int
+    batch: Optional[int]
     nbeta: int
     chunk: int
     d: tuple
@@ -173,18 +179,18 @@ def _dedup_by_identity(items):
     return uniq, slots
 
 
-def compile_hlt(ctx: HEContext, diags: Sequence[DiagSet], *, level: int,
-                schedule: str, rotation_chunk: int,
+def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
+                level: int, schedule: str, rotation_chunk: int,
                 ct_slots: Optional[Sequence[int]] = None) -> "CompiledHLT":
-    """Compile a batched HLT over one DiagSet per batch element (duplicates
-    share one operand slot).  Memoized on the context."""
+    """Compile an HLT.  ``diags``: one DiagSet (a single-ciphertext compile)
+    or a sequence of DiagSets, one per batch element (duplicates share one
+    operand slot).  Memoized on the context."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
     chunk_req = _check_schedule(schedule, rotation_chunk)
-    if isinstance(diags, DiagSet):
-        raise TypeError("the port compiles batched HLTs only: pass a "
-                        "sequence of DiagSets")
-    diag_list = list(diags)
+    single = isinstance(diags, DiagSet)
+    diag_list = [diags] if single else list(diags)
+    batch = None if single else len(diag_list)
     if not diag_list:
         raise ValueError("batched compile needs at least one DiagSet")
     eng = ctx.eng
@@ -194,7 +200,7 @@ def compile_hlt(ctx: HEContext, diags: Sequence[DiagSet], *, level: int,
                              f"{len(diag_list)} DiagSets")
         remap: dict = {}
         ct_slots = tuple(remap.setdefault(s, len(remap)) for s in ct_slots)
-    memo_key = ("hlt", schedule, level, rotation_chunk, ct_slots,
+    memo_key = ("hlt", schedule, level, batch, rotation_chunk, ct_slots,
                 tuple(_StrongKey(ds) for ds in diag_list))
     hit = ctx._compiled.get(memo_key)
     if hit is not None:
@@ -206,26 +212,34 @@ def compile_hlt(ctx: HEContext, diags: Sequence[DiagSet], *, level: int,
     chunk = max(1, min(chunk_req, d_max))
     d_pad = -(-d_max // chunk) * chunk
     uniq, slots = _dedup_by_identity(diag_list)
-    # the kernel reads one stacked tensor per operand; each unique DiagSet
-    # is built straight into its slice (the arena keeps views of it), or
-    # copied there when an earlier compile already built it
-    operands = tuple(
-        torch.zeros((len(uniq),) + s, dtype=torch.int32, device=eng.device)
-        for s in hlt_mod.operand_shapes(eng, level, nbeta, d_pad))
-    for s, ds in enumerate(uniq):
-        dst = tuple(t[s] for t in operands)
-        extra = (level, nbeta, d_pad)
-        got = ctx.arena.get("pallas_operands", ds, extra)
-        if got is None:
-            ctx.arena.slot("pallas_operands", ds, extra,
-                           lambda ds=ds, dst=dst: hlt_mod._build_pallas_operands(
-                               eng, ds, ctx.keys, level, nbeta, d_pad, out=dst))
-        else:
-            for a, b in zip(dst, got, strict=True):
-                a.copy_(b)
+    extra = (level, nbeta, d_pad)
+    if batch is None:
+        # one DiagSet: the kernel reads its arena slot as it stands
+        operands = ctx.arena.slot(
+            "pallas_operands", uniq[0], extra,
+            lambda: hlt_mod._build_pallas_operands(
+                eng, uniq[0], ctx.keys, level, nbeta, d_pad))[1]
+    else:
+        # the kernel reads one stacked tensor per operand; each unique
+        # DiagSet is built straight into its slice (the arena keeps views
+        # of it), or copied there when an earlier compile already built it
+        operands = tuple(
+            torch.zeros((len(uniq),) + s, dtype=torch.int32, device=eng.device)
+            for s in hlt_mod.operand_shapes(eng, level, nbeta, d_pad))
+        for s, ds in enumerate(uniq):
+            dst = tuple(t[s] for t in operands)
+            got = ctx.arena.get("pallas_operands", ds, extra)
+            if got is None:
+                ctx.arena.slot(
+                    "pallas_operands", ds, extra,
+                    lambda ds=ds, dst=dst: hlt_mod._build_pallas_operands(
+                        eng, ds, ctx.keys, level, nbeta, d_pad, out=dst))
+            else:
+                for a, b in zip(dst, got, strict=True):
+                    a.copy_(b)
     op_bytes = sum(t.numel() * t.element_size() for t in operands)
     plan = HLTPlan(
-        schedule=schedule, level=level, batch=len(diag_list), nbeta=nbeta,
+        schedule=schedule, level=level, batch=batch, nbeta=nbeta,
         chunk=chunk, d=d_list, d_pad=d_pad, diag_slots=tuple(slots),
         n_diag_slots=len(uniq),
         operand_bytes=op_bytes, ct_slots=ct_slots,
@@ -236,16 +250,18 @@ def compile_hlt(ctx: HEContext, diags: Sequence[DiagSet], *, level: int,
 
 
 class CompiledHLT:
-    """A compiled batched HLT: call with a sequence of ciphertexts or
-    hoisting products (repeated objects share one hoisting slot)."""
+    """A compiled HLT: call a single compile with one ciphertext or
+    hoisting product, a batched one with a sequence of them (repeated
+    objects share one hoisting slot)."""
 
     def __init__(self, ctx: HEContext, plan: HLTPlan, diag_list, operands):
         self.ctx = ctx
         self.plan = plan
         self._diags = diag_list
-        self._operands = operands       # stacked per unique slot
-        self._diag_slots = torch.tensor(plan.diag_slots, dtype=torch.int32,
-                                        device=ctx.eng.device)
+        self._operands = operands       # one DiagSet's, or stacked per slot
+        self._diag_slots = (None if plan.batch is None else
+                            torch.tensor(plan.diag_slots, dtype=torch.int32,
+                                         device=ctx.eng.device))
         self._gen = ctx._generation
 
     def _hoist_items(self, items):
@@ -263,9 +279,11 @@ class CompiledHLT:
                                  f"{self.plan.level}")
         return hoisted, slots
 
-    def __call__(self, items) -> list:
+    def __call__(self, items):
         self.ctx._check_generation(self._gen)
         self.ctx.counters["hlt_launches"] += 1
+        if self.plan.batch is None:
+            return self._run_single(items)
         items = list(items)
         if len(items) != self.plan.batch:
             raise ValueError(f"{len(items)} inputs for a batch of "
@@ -291,6 +309,22 @@ class CompiledHLT:
                            hoisted[ct_slots[b]].scale * ds.scale / q_ell)
                 for b, ds in enumerate(self._diags)]
 
+    def _run_single(self, item) -> Ciphertext:
+        """Hoist (unless given a hoisting product), one ``fused_hlt``, and
+        the merged ModDown+Rescale over both output polynomials."""
+        eng, plan = self.ctx.eng, self.plan
+        hst = item if isinstance(item, Hoisted) else hoist(eng, item)
+        if hst.level != plan.level:
+            raise ValueError(f"input level {hst.level}, compiled for "
+                             f"{plan.level}")
+        view = eng.basis(eng.tools.digit_bases(plan.level)[0][2])
+        acc = ops.fused_hlt(hst.digits, hst.c0_ext, hst.c1_ext,
+                            *self._operands, view.moduli_u32, view.qneg_inv)
+        down = ops.moddown_fused(acc, eng.fused_moddown_tables(plan.level))
+        q_ell = eng.ctx.moduli_host[plan.level]
+        return Ciphertext(down[0], down[1], plan.level - 1,
+                          hst.scale * self._diags[0].scale / q_ell)
+
 
 # ---------------------------------------------------------------------------
 # compile_hemm -> HEMMProgram
@@ -299,15 +333,17 @@ class CompiledHLT:
 
 @dataclasses.dataclass(frozen=True)
 class HEMMPlan:
-    """Compile summary for one HE MM: Step 1 (σ, τ) and Step 2 (2·l ε/ω)
-    as one batched launch each; the program consumes 3 levels from
-    ``level``."""
+    """Compile summary for one HE MM: Step 1 (σ, τ) and Step 2 (2·l ε/ω),
+    as one batched launch each (``batched``) or as 2 + 2·l single HLTs
+    (``step1`` / ``step2`` then describe the first HLT of each step); the
+    program consumes 3 levels from ``level``."""
 
     m: int
     l: int
     n: int
     schedule: str
     level: int
+    batched: bool
     step1: HLTPlan
     step2: HLTPlan
 
@@ -315,17 +351,18 @@ class HEMMPlan:
 class HEMMProgram:
     """A compiled Algorithm-2 HE MM: ``prog(ctA, ctB) -> ctC``.
 
-    Step 1 runs {σ(A), τ(B)} as one batched HLT; Step 2 runs all 2·l HLTs
-    as one slot-indexed HLT off the 2 unique hoisting products; then
-    l × (mult → rescale) and add."""
+    Batched: Step 1 runs {σ(A), τ(B)} as one batched HLT and Step 2 all 2·l
+    HLTs as one slot-indexed HLT off the 2 unique hoisting products.  Not
+    batched: σ(A) and τ(B) are two single HLTs, each output is hoisted
+    once, and the 2·l single HLTs of Step 2 reuse those two products.
+    Then l × (mult → rescale) and add."""
 
-    def __init__(self, ctx: HEContext, mm_plan, plan: HEMMPlan,
-                 step1: CompiledHLT, step2: CompiledHLT):
+    def __init__(self, ctx: HEContext, mm_plan, plan: HEMMPlan, step1, step2):
         self.ctx = ctx
         self.mm_plan = mm_plan
         self.plan = plan
-        self._step1 = step1
-        self._step2 = step2
+        self._step1 = step1         # CompiledHLT, or a tuple of 2 if unbatched
+        self._step2 = step2         # CompiledHLT, or a tuple of 2·l
         self._gen = ctx._generation
         #: optional callable(stage_name) run at each stage boundary of a
         #: call ("start", "step1", "step2_hoist", "step2", "mult_rescale");
@@ -344,11 +381,20 @@ class HEMMProgram:
             raise ValueError(f"input levels {ctA.level}, {ctB.level}; "
                              f"compiled for {self.plan.level}")
         self._mark("start")
-        ctA0, ctB0 = self._step1([ctA, ctB])
-        self._mark("step1")
-        hstA, hstB = hoist_batched(eng, [ctA0, ctB0])
-        self._mark("step2_hoist")
-        outs = self._step2([hstA] * p.l + [hstB] * p.l)
+        if self.plan.batched:
+            ctA0, ctB0 = self._step1([ctA, ctB])
+            self._mark("step1")
+            hstA, hstB = hoist_batched(eng, [ctA0, ctB0])
+            self._mark("step2_hoist")
+            outs = self._step2([hstA] * p.l + [hstB] * p.l)
+        else:
+            s1a, s1b = self._step1
+            ctA0, ctB0 = s1a(ctA), s1b(ctB)
+            self._mark("step1")
+            hstA, hstB = hoist(eng, ctA0), hoist(eng, ctB0)
+            self._mark("step2_hoist")
+            outs = ([run(hstA) for run in self._step2[:p.l]]
+                    + [run(hstB) for run in self._step2[p.l:]])
         self._mark("step2")
         acc: Optional[Ciphertext] = None
         for k in range(p.l):
@@ -359,28 +405,39 @@ class HEMMProgram:
 
 
 def compile_hemm(ctx: HEContext, plan, *, schedule: str, rotation_chunk: int,
-                 level: Optional[int] = None) -> HEMMProgram:
+                 level: Optional[int] = None,
+                 batched: bool = True) -> HEMMProgram:
     """Compile Algorithm 2 for a HeMMPlan into a reusable HEMMProgram
     (memoized on the context: same plan -> same program)."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
     _check_schedule(schedule, rotation_chunk)
     level = ctx.eng.params.L if level is None else level
-    memo_key = ("hemm", _StrongKey(plan), schedule, level, rotation_chunk)
+    batched = bool(batched)
+    memo_key = ("hemm", _StrongKey(plan), schedule, level, rotation_chunk,
+                batched)
     hit = ctx._compiled.get(memo_key)
     if hit is not None:
         return hit
-    step1 = compile_hlt(ctx, [plan.ds_sigma, plan.ds_tau], level=level,
-                        schedule=schedule, rotation_chunk=rotation_chunk,
-                        ct_slots=(0, 1))
-    step2 = compile_hlt(ctx, list(plan.ds_eps) + list(plan.ds_omega),
-                        level=level - 1, schedule=schedule,
-                        rotation_chunk=rotation_chunk,
-                        ct_slots=(0,) * plan.l + (1,) * plan.l)
+    step2_sets = list(plan.ds_eps) + list(plan.ds_omega)
+    if batched:
+        step1 = compile_hlt(ctx, [plan.ds_sigma, plan.ds_tau], level=level,
+                            schedule=schedule, rotation_chunk=rotation_chunk,
+                            ct_slots=(0, 1))
+        step2 = compile_hlt(ctx, step2_sets, level=level - 1,
+                            schedule=schedule, rotation_chunk=rotation_chunk,
+                            ct_slots=(0,) * plan.l + (1,) * plan.l)
+        s1_plan, s2_plan = step1.plan, step2.plan
+    else:
+        c = lambda ds, lv: compile_hlt(ctx, ds, level=lv, schedule=schedule,
+                                       rotation_chunk=rotation_chunk)
+        step1 = (c(plan.ds_sigma, level), c(plan.ds_tau, level))
+        step2 = tuple(c(ds, level - 1) for ds in step2_sets)
+        s1_plan, s2_plan = step1[0].plan, step2[0].plan
     prog = HEMMProgram(
         ctx, plan,
         HEMMPlan(m=plan.m, l=plan.l, n=plan.n, schedule=schedule, level=level,
-                 step1=step1.plan, step2=step2.plan),
+                 batched=batched, step1=s1_plan, step2=s2_plan),
         step1, step2)
     ctx._compiled[memo_key] = prog
     return prog

@@ -1,7 +1,7 @@
-"""Homomorphic Linear Transformation: diagonal encoding, the batched hoist
-and the Montgomery operand builder of the fused schedule — counterpart of
-``repro/core/hlt.py`` (its ``"pallas"`` schedule; the reference schedules
-``baseline``/``hoisted``/``mo`` are not ported yet).
+"""Homomorphic Linear Transformation: diagonal encoding, the single and
+batched hoists and the Montgomery operand builder of the fused schedule —
+counterpart of ``repro/core/hlt.py`` (its ``"pallas"`` schedule; the
+reference schedules ``baseline``/``hoisted``/``mo`` are not ported yet).
 
 The a-part (c0) is "scale-raised" into PQ_ℓ (× [P]_{q_i}, zero on the
 special limbs) so DiagIP accumulates both output polynomials in the
@@ -101,19 +101,32 @@ def encode_diagonals(eng: CkksEngine, U, scale: Optional[float] = None) -> DiagS
 
 
 # ---------------------------------------------------------------------------
-# hoisting (batched, fused kernels)
+# hoisting (fused kernels)
 # ---------------------------------------------------------------------------
+
+
+def hoist(eng: CkksEngine, ct: Ciphertext) -> Hoisted:
+    """Decomp + ModUp once (Algorithm 3 lines 1–2), through the single
+    fused hoist (``intt_scale`` then ``baseconv_ntt``)."""
+    level = ct.level
+    digits = ops.hoist_fused(ct.c1, eng.fused_hoist_tables(level))
+    return Hoisted(digits=digits, c0_ext=_scale_raise(eng, ct.c0, level),
+                   c1_ext=_scale_raise(eng, ct.c1, level), level=level,
+                   scale=ct.scale)
 
 
 def hoist_batched(eng: CkksEngine, cts: Sequence[Ciphertext]) -> list:
     """Decomp + ModUp for a batch of ciphertexts at one level, through the
-    batched fused hoist (one ``hoist_db`` call for the whole batch)."""
+    batched fused hoist (one ``hoist_db`` call for the whole batch); one
+    ciphertext goes through :func:`hoist`, as in the reference."""
     cts = list(cts)
     if not cts:
         return []
     levels = {ct.level for ct in cts}
     if len(levels) != 1:
         raise ValueError(f"hoist_batched needs one common level: {levels}")
+    if len(cts) == 1:
+        return [hoist(eng, cts[0])]
     level = cts[0].level
     c0s = torch.stack([ct.c0 for ct in cts])
     c1s = torch.stack([ct.c1 for ct in cts])

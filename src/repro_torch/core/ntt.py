@@ -7,8 +7,9 @@ coefficients to *bit-reversed* evaluation order; the inverse
 port lives in bit-reversed order, as in the reference.
 
 Shapes: x ``(..., M, N)`` int32 residues; twiddle tables ``(M, N)``;
-moduli and constants ``(M, 1)``.  The CUDA kernels run the same stage
-recursion in shared memory (``csrc/ntt.cuh``).
+moduli and constants ``(M, 1)``.  The CUDA kernels run the Montgomery
+stage recursion in shared memory (``block_ntt_fwd`` / ``block_intt`` in
+``csrc/common.cuh``; the standalone transforms are ``csrc/ntt.cu``).
 """
 from __future__ import annotations
 

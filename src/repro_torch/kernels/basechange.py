@@ -1,11 +1,14 @@
 """Fused base-change stages: the hoist and the merged ModDown+Rescale.
 
-Counterpart of ``repro/kernels/basechange.py``.  Three functions, each with
+Counterpart of ``repro/kernels/basechange.py``.  Four functions, each with
 a plain PyTorch version (int64 arithmetic, used for CPU tensors and as the
 on-card reference) and a CUDA kernel wrapper (``csrc/intt_scale.cu``,
 ``csrc/hoist.cu``, ``csrc/moddown.cu``; one launch counter each):
 
 * ``intt_scale``     — per-row iNTT, then montmul by a per-row scale.
+* ``baseconv_ntt``   — the single hoist's second half, with the
+  reference's operands: HPS BaseConv of each digit's (zero-padded) scaled
+  rows → NTT, own rows taken from a passthrough.
 * ``hoist_db``       — the batched hoist: iNTT·q̂⁻¹ of every digit row →
   HPS BaseConv (float64 floor correction) → NTT, own rows passed through.
   The TPU kernel double-buffers its copy-in because its grid runs in
@@ -74,6 +77,21 @@ def _baseconv_ntt_plain(y, w, d, inv_d, psi_m, q32, qneg):
     return core_ntt.ntt_mont_raw(conv, psi_m, q32, qneg)
 
 
+def baseconv_ntt_plain(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask):
+    """y: (nbeta·alpha, N) scaled digit rows (digit j at rows j·alpha..);
+    w: (nbeta, M, alpha); d/mask: (nbeta, M, 1); inv_d: (nbeta, alpha, 1)
+    float64; psi_m: (M, N); q32/qneg: (M, 1); passthrough: (M, N).
+    Returns (nbeta, M, N): where mask != 0 the passthrough row, else the
+    eval-domain BaseConv."""
+    nbeta, _, alpha = w.shape
+    outs = []
+    for j in range(nbeta):
+        res = _baseconv_ntt_plain(y[None, j * alpha:(j + 1) * alpha], w[j],
+                                  d[j], inv_d[j], psi_m, q32, qneg)[0]
+        outs.append(torch.where(mask[j] != 0, passthrough, res))
+    return torch.stack(outs)
+
+
 def hoist_db_plain(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
                    psi_m, q_full, qneg_full, mask, *, nbeta: int, alpha: int):
     """c1s: (B, nq, N) eval-domain main limbs.  Digit j owns c1s rows
@@ -122,7 +140,8 @@ def moddown_finish_plain(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
 # ---------------------------------------------------------------------------
 
 #: launches per kernel, counted by the wrapper right where it launches
-LAUNCHES = {"intt_scale": 0, "hoist_db": 0, "moddown_finish": 0}
+LAUNCHES = {"intt_scale": 0, "hoist_db": 0, "moddown_finish": 0,
+            "baseconv_ntt": 0}
 
 
 def _logn(N: int) -> int:
@@ -188,6 +207,29 @@ def hoist_db_cuda(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
     build.call("hoist_bc_ntt_launch", y, c1s, c1s.stride(0), out, B, nbeta,
                alpha, nq, M, logN, w, d, inv_d, psi_m, q_full, qneg_full, mask)
     LAUNCHES["hoist_db"] += 1
+    return out
+
+
+def baseconv_ntt_cuda(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask):
+    """Operands as ``baseconv_ntt_plain``, all contiguous on CUDA."""
+    nbeta, M, alpha = w.shape
+    N = y.shape[-1]
+    logN = _logn(N)
+    name = "baseconv_ntt"
+    build.check(name, y, torch.int32)
+    if tuple(y.shape) != (nbeta * alpha, N):
+        raise ValueError(f"{name}: y {tuple(y.shape)}, want "
+                         f"{(nbeta * alpha, N)}")
+    build.check_tables(name, y.device, (w, (nbeta, M, alpha)),
+                       (d, (nbeta, M, 1)), (psi_m, (M, N)), (q32, (M, 1)),
+                       (qneg, (M, 1)), (passthrough, (M, N)),
+                       (mask, (nbeta, M, 1)))
+    build.check_tables(name, y.device, (inv_d, (nbeta, alpha, 1)),
+                       dtype=torch.float64)
+    out = torch.empty((nbeta, M, N), dtype=torch.int32, device=y.device)
+    build.call("baseconv_ntt_launch", y, passthrough, out, nbeta, alpha, M,
+               logN, w, d, inv_d, psi_m, q32, qneg, mask)
+    LAUNCHES[name] += 1
     return out
 
 

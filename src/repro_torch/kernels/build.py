@@ -42,6 +42,12 @@ SIGNATURES = {
     "fused_hlt_indexed_launch": ("fused_hlt",
                                  [P, P, P, P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I]),
+    "fused_hlt_launch": ("fused_hlt",
+                         [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I]),
+    "baseconv_ntt_launch": ("hoist",
+                            [P, P, P, I, I, I, I, P, P, P, P, P, P, P]),
+    "ntt_launch": ("ntt", [P, LL, P, I, I, I, P, P, P]),
+    "intt_launch": ("ntt", [P, LL, P, I, I, I, P, P, P, P]),
 }
 
 _LIBS: dict = {}

@@ -1,5 +1,6 @@
-"""Slot-indexed batched MO-HLT rotation datapath — counterpart of
-``repro/kernels/fused_hlt.py`` ``fused_hlt_indexed``.
+"""MO-HLT rotation datapath — counterpart of ``repro/kernels/fused_hlt.py``
+``fused_hlt_indexed`` (slot-indexed batch) and ``fused_hlt`` (one
+ciphertext).
 
 Per batch element b (hoisting product ``ct_slots[b]``, diagonal set
 ``diag_slots[b]``) and every rotation r of that set: Automorph (gather by
@@ -12,6 +13,13 @@ rk0/rk1 (S, d, β, M, N); perms (S, d, N) int32; is_id (S, d, 1) int32;
 ct_slots/diag_slots (B,) int32; q32/qneg (M, 1).  Both versions return
 one (2, B, M, N) tensor — acc0 then acc1 — so the merged ModDown after it
 runs over all 2·B polynomials in one launch.
+
+``fused_hlt`` is the same function for one ciphertext and one diagonal
+set: digits (β, M, N); c0e/c1e (M, N); u (d, M, N); rk0/rk1 (d, β, M, N);
+perms (d, N); is_id (d, 1).  It returns one (2, M, N) tensor, which
+unpacks as (acc0, acc1).  Its CUDA form is a second entry point of
+``csrc/fused_hlt.cu`` running the same device body with both slots 0,
+counted apart from the indexed one.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ import torch
 from repro_torch.core import modmath as mm
 from repro_torch.kernels import build
 
-LAUNCHES = {"fused_hlt_indexed": 0}
+LAUNCHES = {"fused_hlt_indexed": 0, "fused_hlt": 0}
 
 
 def fused_hlt_indexed_plain(digits, c0e, c1e, u, rk0, rk1, perms, is_id,
@@ -73,5 +81,29 @@ def fused_hlt_indexed_cuda(digits, c0e, c1e, u, rk0, rk1, perms, is_id,
     build.call("fused_hlt_indexed_launch", digits, c0e, c1e, u, rk0, rk1,
                perms, is_id, ct_slots, diag_slots, q32, qneg, out, B, nbeta,
                M, N, d)
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_hlt_plain(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
+    zero = torch.zeros((1,), dtype=torch.int32, device=digits.device)
+    return fused_hlt_indexed_plain(
+        digits[None], c0e[None], c1e[None], u[None], rk0[None], rk1[None],
+        perms[None], is_id[None], zero, zero, q32, qneg)[:, 0]
+
+
+def fused_hlt_cuda(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
+    nbeta, M, N = digits.shape
+    d = u.shape[0]
+    name = "fused_hlt"
+    dev = digits.device
+    build.check(name, digits, torch.int32)
+    build.check_tables(name, dev, (c0e, (M, N)), (c1e, (M, N)),
+                       (u, (d, M, N)), (rk0, (d, nbeta, M, N)),
+                       (rk1, (d, nbeta, M, N)), (perms, (d, N)),
+                       (is_id, (d, 1)), (q32, (M, 1)), (qneg, (M, 1)))
+    out = torch.empty((2, M, N), dtype=torch.int32, device=dev)
+    build.call("fused_hlt_launch", digits, c0e, c1e, u, rk0, rk1, perms,
+               is_id, q32, qneg, out, nbeta, M, N, d)
     LAUNCHES[name] += 1
     return out

@@ -1,6 +1,7 @@
 """Device dispatch for the port's kernels, and the fused pipelines built on
 them — counterpart of ``repro/kernels/ops.py`` plus the pipelines of
-``repro/kernels/basechange.py`` (``hoist_fused_db``, ``moddown_fused``).
+``repro/kernels/basechange.py`` (``hoist_fused``, ``hoist_fused_db``,
+``moddown_fused``).
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
 plain PyTorch version.  There is no other path: a CUDA launch that fails
@@ -8,14 +9,34 @@ raises, and nothing falls back to the plain version.
 """
 from __future__ import annotations
 
+import torch.nn.functional as F
+
 from repro_torch.kernels import basechange as _bc
 from repro_torch.kernels import fused_hlt as _fh
+from repro_torch.kernels import ntt as _ntt
+
+_COUNTERS = (_fh.LAUNCHES, _bc.LAUNCHES, _ntt.LAUNCHES)
+
+
+def ntt(x, psi_m, q32, qneg):
+    fn = _ntt.ntt_cuda if x.is_cuda else _ntt.ntt_plain
+    return fn(x, psi_m, q32, qneg)
+
+
+def intt(x, psii_m, ninv_m, q32, qneg):
+    fn = _ntt.intt_cuda if x.is_cuda else _ntt.intt_plain
+    return fn(x, psii_m, ninv_m, q32, qneg)
 
 
 def intt_scale(x, psii_m, ninv_m, scale_m, q32, qneg):
     if x.is_cuda:
         return _bc.intt_scale_cuda(x, psii_m, ninv_m, scale_m, q32, qneg)
     return _bc.intt_scale_plain(x, psii_m, ninv_m, scale_m, q32, qneg)
+
+
+def baseconv_ntt(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask):
+    fn = _bc.baseconv_ntt_cuda if y.is_cuda else _bc.baseconv_ntt_plain
+    return fn(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask)
 
 
 def hoist_db(c1s, *tables, nbeta: int, alpha: int):
@@ -36,13 +57,21 @@ def fused_hlt_indexed(digits, c0e, c1e, u, rk0, rk1, perms, is_id, ct_slots,
               diag_slots, q32, qneg)
 
 
+def fused_hlt(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
+    fn = _fh.fused_hlt_cuda if digits.is_cuda else _fh.fused_hlt_plain
+    return fn(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {**_fh.LAUNCHES, **_bc.LAUNCHES}
+    out: dict = {}
+    for counts in _COUNTERS:
+        out.update(counts)
+    return out
 
 
 def reset_launch_counts() -> None:
-    for counts in (_fh.LAUNCHES, _bc.LAUNCHES):
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0
 
@@ -50,6 +79,20 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # fused pipelines
 # ---------------------------------------------------------------------------
+
+
+def hoist_fused(c1, t: dict):
+    """Single fused hoist: c1 (nq, N) eval-domain main limbs -> digits
+    (nbeta, M, N); one intt_scale launch over the digit rows zero-padded
+    to nbeta·alpha, then one baseconv_ntt launch, the own rows passed
+    through from c1 zero-padded to M rows (the reference's operands)."""
+    nq = c1.shape[0]
+    R, M = t["psii_pad"].shape[0], t["psi_full"].shape[0]
+    y = intt_scale(F.pad(c1, (0, 0, 0, R - nq)), t["psii_pad"], t["ninv_pad"],
+                   t["hat_pad"], t["q_pad"], t["qneg_pad"])
+    return baseconv_ntt(y, t["w"], t["d"], t["inv_d"], t["psi_full"],
+                        t["q_full"], t["qneg_full"],
+                        F.pad(c1, (0, 0, 0, M - nq)), t["mask"])
 
 
 def hoist_fused_db(c1s, t: dict):
