@@ -1,6 +1,6 @@
-"""CKKS (RNS variant): encode/decode, keygen, encrypt/decrypt, add, mult
-with hybrid (β-digit) keyswitching, rescale — counterpart of
-``repro/core/ckks.py``.
+"""CKKS (RNS variant): encode/decode, keygen, encrypt/decrypt, add, sub,
+cmult, mod_drop, mult with hybrid (β-digit) keyswitching, rotate, rescale —
+counterpart of ``repro/core/ckks.py``.
 
 Conventions are the reference's: ct = (c0, c1), dec(ct) = c0 + c1·s
 (mod Q_ℓ); polynomials are (ℓ+1, N) int32 limbs in bit-reversed
@@ -10,8 +10,9 @@ reference's exact order, so the same seed gives array-equal keys and
 ciphertexts.
 
 ``datapath`` picks the lowering of the engine's own transforms (encode,
-decode, keygen, the keyswitch inside ``mult`` and its ModDown,
-``rescale``), as the reference's knob does: ``"xla"`` (the default) keeps
+decode, keygen, the keyswitch inside ``mult`` / ``rotate`` and its
+ModDown, ``rescale``, the merged ModDown+Rescale of ``_mod_down_eval``),
+as the reference's knob does: ``"xla"`` (the default) keeps
 them on the plain int64 NTT, the counterpart of the reference's u64 XLA
 lowering; ``"pallas"`` runs them through the ``ntt`` / ``intt`` kernels
 (``kernels/ntt.py``; the plain Montgomery versions on the CPU).  Both give
@@ -312,6 +313,28 @@ class CkksEngine:
         return Ciphertext(mm.addmod(a.c0, b.c0, q), mm.addmod(a.c1, b.c1, q),
                           a.level, max(a.scale, b.scale))
 
+    def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        q = self.main_basis(a.level).moduli
+        return Ciphertext(mm.submod(a.c0, b.c0, q), mm.submod(a.c1, b.c1, q),
+                          a.level, max(a.scale, b.scale))
+
+    def cmult(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+        """ct × plaintext (no rescale)."""
+        if pt.level < ct.level:
+            raise ValueError(f"cmult: plaintext level {pt.level} below the "
+                             f"ciphertext's {ct.level}")
+        q = self.main_basis(ct.level).moduli
+        d = pt.data[: ct.level + 1]
+        return Ciphertext(mm.mulmod(ct.c0, d, q), mm.mulmod(ct.c1, d, q),
+                          ct.level, ct.scale * pt.scale)
+
+    def mod_drop(self, ct: Ciphertext, level: int) -> Ciphertext:
+        """Drop limbs down to ``level`` (row views, no arithmetic)."""
+        if level > ct.level:
+            raise ValueError(f"mod_drop to level {level} above {ct.level}")
+        return Ciphertext(ct.c0[: level + 1], ct.c1[: level + 1], level,
+                          ct.scale)
+
     def mult(self, a: Ciphertext, b: Ciphertext, keys: Keys) -> Ciphertext:
         """ct × ct with relinearization (no rescale; call rescale() after)."""
         if a.level != b.level:
@@ -324,6 +347,18 @@ class CkksEngine:
         k0, k1 = self.key_switch(d2, keys.evk_mult, ell)
         return Ciphertext(mm.addmod(d0, k0, q), mm.addmod(d1, k1, q),
                           ell, a.scale * b.scale)
+
+    def rotate(self, ct: Ciphertext, r: int, keys: Keys) -> Ciphertext:
+        """Rot(ct, r): circular left rotation of the slots by r (a full
+        KeySwitch of the permuted c1)."""
+        N = self.params.N
+        g = automorph.galois_elt_rot(r, N)
+        key = keys.galois.get(g) or keys.rot[r]
+        c0p = automorph.apply_eval(ct.c0, N, g)
+        c1p = automorph.apply_eval(ct.c1, N, g)
+        k0, k1 = self.key_switch(c1p, key, ct.level)
+        q = self.main_basis(ct.level).moduli
+        return Ciphertext(mm.addmod(c0p, k0, q), k1, ct.level, ct.scale)
 
     # -- keyswitch (coarse-grained reference form) ---------------------------
 
@@ -349,14 +384,27 @@ class CkksEngine:
             acc1 = mm.addmod(acc1, mm.mulmod(xfull, evk.k1[j][rows], q), q)
         return self._mod_down_eval(acc0, ell), self._mod_down_eval(acc1, ell)
 
-    def _mod_down_eval(self, x_full, ell: int):
-        """ModDown from Q_ℓ ∪ P back to Q_ℓ, eval domain in and out (the
-        reference's ``drop_last=False`` XLA form; the merged ModDown+Rescale
-        of the HLT runs on the kernels instead)."""
+    def _mod_down_eval(self, x_full, ell: int, drop_last: bool = False,
+                       datapath: Optional[str] = None):
+        """ModDown from Q_ℓ ∪ P back to Q_ℓ, or with ``drop_last`` to
+        Q_{ℓ-1} (the merged ModDown+Rescale, P ∪ {q_ℓ} → Q_{ℓ-1}); eval
+        domain in and out.  ``datapath`` overrides the engine's knob for
+        this call: on ``"pallas"`` with ``drop_last`` the whole tail runs
+        as ``intt_scale`` + ``moddown_finish`` (``ops.moddown_fused``), as
+        the reference's; otherwise the chain iNTT → BaseConv → NTT →
+        subtract → × P⁻¹ runs on the engine's transforms."""
+        dp = self.datapath if datapath is None else datapath
+        if dp == "pallas" and drop_last:
+            return ops.moddown_fused(x_full[None],
+                                     self.fused_moddown_tables(ell))[0]
         p = self.params
-        P = tuple(range(p.num_main, p.num_total))
-        Q = tuple(range(ell + 1))
-        x_p_coeff = self._intt(x_full[ell + 1:], self.basis(P))
+        spec = tuple(range(p.num_main, p.num_total))
+        P = spec + ((ell,) if drop_last else ())
+        Q = tuple(range(ell)) if drop_last else tuple(range(ell + 1))
+        x_p = x_full[ell + 1:]
+        if drop_last:
+            x_p = torch.cat([x_p, x_full[ell:ell + 1]])
+        x_p_coeff = self._intt(x_p, self.basis(P))
         conv = self.tools.base_conv(x_p_coeff, P, Q)
         qv = self.basis(Q)
         conv_eval = self._ntt(conv, qv)

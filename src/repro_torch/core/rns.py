@@ -99,6 +99,18 @@ class RnsTools:
                 [mm.host_inv(Pprod % q, q) for q in qs], dtype=np.uint32)[:, None]
         return self._scale_cache[key]
 
+    def mod_down(self, x_q, x_p, P: tuple, Q: tuple):
+        """(x − [x]_P)/P: x_q (|Q|, N) and x_p (|P|, N) coefficient-domain
+        residues.  Returns (|Q|, N)."""
+        conv = self.base_conv(x_p, P, Q)
+        qs = self.ctx.moduli[torch.as_tensor(Q, device=self.ctx.device)]
+        return mm.mulmod(mm.submod(x_q, conv, qs), self.moddown_pinv(P, Q), qs)
+
+    def rescale(self, x, ell: int):
+        """Drop limb q_ℓ: x (ℓ+1, N) coefficient domain -> (ℓ, N); ModDown
+        with P = {q_ℓ}."""
+        return self.mod_down(x[:ell], x[ell:ell + 1], (ell,), tuple(range(ell)))
+
     def moddown_pinv(self, P: tuple, Q: tuple) -> torch.Tensor:
         key = ("md", P, Q)
         if key not in self._dev_cache:

@@ -8,11 +8,15 @@
 // Replaces: src/repro/kernels/fused_hlt.py:fused_hlt_indexed (the TPU
 // kernel, grid (batch, limb, rotation chunk) with scalar-prefetched slot
 // vectors and the accumulator revisited across the sequential chunk axis),
-// and, through the second entry point fused_hlt_launch, :fused_hlt (one
+// through the second entry point fused_hlt_launch, :fused_hlt (one
 // ciphertext, grid (limb, rotation chunk)): the same device body with one
-// batch element whose hoisting-product and diagonal slots are both 0.  The
-// TPU's rotation-chunk grid axis has no counterpart: every block loops over
-// all d rotations, so the chunk only pads d.
+// batch element whose hoisting-product and diagonal slots are both 0; and,
+// through the third entry point fused_hlt_batched_launch,
+// :fused_hlt_batched (a stacked batch with no slot dedup, grid (batch,
+// limb, rotation chunk)): the same body with both slots of batch element b
+// equal to b, every operand carrying its own batch stride.  The TPU's
+// rotation-chunk grid axis has no counterpart: every block loops over all
+// d rotations, so the chunk only pads d.
 //
 // Bound on an H100: bytes.  Every rotation streams, per output value, its
 // diagonal (4 B), 2β rotation-key words (8β B) and one permutation index
@@ -32,8 +36,12 @@ namespace {
 
 constexpr int kTile = 256;
 
-// kIndexed = false: one ciphertext, slots not read (both are 0).
-template <bool kIndexed>
+// Where batch element b finds its hoisting product and diagonal set.
+enum class Slots { kIndexed, kSingle, kBatched };
+
+// kIndexed: read from the slot vectors; kSingle: one ciphertext, both 0;
+// kBatched: both b (stacked operands, no slot vectors).
+template <Slots kSlots>
 __global__ void __launch_bounds__(kTile)
 fused_hlt_kernel(const uint32_t* __restrict__ digits,
                          const uint32_t* __restrict__ c0e,
@@ -53,8 +61,10 @@ fused_hlt_kernel(const uint32_t* __restrict__ digits,
   if (j >= N) return;
   const int i = blockIdx.y;
   const long long b = blockIdx.z;
-  const long long h = kIndexed ? ct_slots[b] : 0;
-  const long long sl = kIndexed ? diag_slots[b] : 0;
+  const long long h = kSlots == Slots::kIndexed ? ct_slots[b]
+                      : kSlots == Slots::kBatched ? b : 0;
+  const long long sl = kSlots == Slots::kIndexed ? diag_slots[b]
+                       : kSlots == Slots::kBatched ? b : 0;
   const uint32_t q = q32[i], qn = qneg[i];
   const long long n = N;
   const uint32_t* dig = digits + (h * nbeta * M + i) * n;   // digit 0, limb i
@@ -99,7 +109,7 @@ extern "C" int fused_hlt_indexed_launch(
     const int32_t* diag_slots, const uint32_t* q32, const uint32_t* qneg,
     uint32_t* out, int B, int nbeta, int M, int N, int d, void* stream) {
   dim3 grid((N + kTile - 1) / kTile, M, B);
-  fused_hlt_kernel<true><<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_hlt_kernel<Slots::kIndexed><<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       digits, c0e, c1e, u, rk0, rk1, perms, is_id, ct_slots, diag_slots, q32,
       qneg, out, B, nbeta, M, N, d);
   return static_cast<int>(cudaGetLastError());
@@ -114,9 +124,26 @@ extern "C" int fused_hlt_launch(
     const uint32_t* qneg, uint32_t* out, int nbeta, int M, int N, int d,
     void* stream) {
   dim3 grid((N + kTile - 1) / kTile, M, 1);
-  fused_hlt_kernel<false><<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_hlt_kernel<Slots::kSingle><<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       digits, c0e, c1e, u, rk0, rk1, perms, is_id, nullptr, nullptr, q32,
       qneg, out, 1, nbeta, M, N, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A stacked batch: digits (B, β, M, N), c0e/c1e (B, M, N), u (B, d, M, N),
+// rk0/rk1 (B, d, β, M, N), perms (B, d, N), is_id (B, d, 1) -> out
+// (2, B, M, N).
+extern "C" int fused_hlt_batched_launch(
+    const uint32_t* digits, const uint32_t* c0e, const uint32_t* c1e,
+    const uint32_t* u, const uint32_t* rk0, const uint32_t* rk1,
+    const int32_t* perms, const int32_t* is_id, const uint32_t* q32,
+    const uint32_t* qneg, uint32_t* out, int B, int nbeta, int M, int N,
+    int d, void* stream) {
+  dim3 grid((N + kTile - 1) / kTile, M, B);
+  fused_hlt_kernel<Slots::kBatched>
+      <<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+          digits, c0e, c1e, u, rk0, rk1, perms, is_id, nullptr, nullptr, q32,
+          qneg, out, B, nbeta, M, N, d);
   return static_cast<int>(cudaGetLastError());
 }
 

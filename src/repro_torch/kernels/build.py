@@ -48,6 +48,12 @@ SIGNATURES = {
                             [P, P, P, I, I, I, I, P, P, P, P, P, P, P]),
     "ntt_launch": ("ntt", [P, LL, P, I, I, I, P, P, P]),
     "intt_launch": ("ntt", [P, LL, P, I, I, I, P, P, P, P]),
+    "fused_hlt_batched_launch": ("fused_hlt",
+                                 [P, P, P, P, P, P, P, P, P, P, P,
+                                  I, I, I, I, I]),
+    "baseconv_launch": ("baseconv", [P, P, P, P, P, P, P, P, P, P, I, I, I]),
+    "modmul_launch": ("modmul", [P, P, P, P, P, I, I]),
+    "modadd_launch": ("modmul", [P, P, P, P, I, I]),
 }
 
 _LIBS: dict = {}

@@ -1,6 +1,6 @@
 """MO-HLT rotation datapath — counterpart of ``repro/kernels/fused_hlt.py``
-``fused_hlt_indexed`` (slot-indexed batch) and ``fused_hlt`` (one
-ciphertext).
+``fused_hlt_indexed`` (slot-indexed batch), ``fused_hlt`` (one
+ciphertext) and ``fused_hlt_batched`` (a stacked batch, no dedup).
 
 Per batch element b (hoisting product ``ct_slots[b]``, diagonal set
 ``diag_slots[b]``) and every rotation r of that set: Automorph (gather by
@@ -20,6 +20,13 @@ perms (d, N); is_id (d, 1).  It returns one (2, M, N) tensor, which
 unpacks as (acc0, acc1).  Its CUDA form is a second entry point of
 ``csrc/fused_hlt.cu`` running the same device body with both slots 0,
 counted apart from the indexed one.
+
+``fused_hlt_batched`` is the indexed function on operands stacked per
+batch element: digits (B, β, M, N); c0e/c1e (B, M, N); u (B, d, M, N);
+rk0/rk1 (B, d, β, M, N); perms (B, d, N); is_id (B, d, 1) — batch element
+b reads slot b of every operand.  It returns one (2, B, M, N) tensor.  Its
+CUDA form is the third entry point of ``csrc/fused_hlt.cu``, with its own
+counter, so the three paths can be told apart.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 from repro_torch.core import modmath as mm
 from repro_torch.kernels import build
 
-LAUNCHES = {"fused_hlt_indexed": 0, "fused_hlt": 0}
+LAUNCHES = {"fused_hlt_indexed": 0, "fused_hlt": 0, "fused_hlt_batched": 0}
 
 
 def fused_hlt_indexed_plain(digits, c0e, c1e, u, rk0, rk1, perms, is_id,
@@ -105,5 +112,31 @@ def fused_hlt_cuda(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
     out = torch.empty((2, M, N), dtype=torch.int32, device=dev)
     build.call("fused_hlt_launch", digits, c0e, c1e, u, rk0, rk1, perms,
                is_id, q32, qneg, out, nbeta, M, N, d)
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_hlt_batched_plain(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32,
+                            qneg):
+    slots = torch.arange(digits.shape[0], dtype=torch.int32,
+                         device=digits.device)
+    return fused_hlt_indexed_plain(digits, c0e, c1e, u, rk0, rk1, perms,
+                                   is_id, slots, slots, q32, qneg)
+
+
+def fused_hlt_batched_cuda(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32,
+                           qneg):
+    B, nbeta, M, N = digits.shape
+    d = u.shape[1]
+    name = "fused_hlt_batched"
+    dev = digits.device
+    build.check(name, digits, torch.int32)
+    build.check_tables(name, dev, (c0e, (B, M, N)), (c1e, (B, M, N)),
+                       (u, (B, d, M, N)), (rk0, (B, d, nbeta, M, N)),
+                       (rk1, (B, d, nbeta, M, N)), (perms, (B, d, N)),
+                       (is_id, (B, d, 1)), (q32, (M, 1)), (qneg, (M, 1)))
+    out = torch.empty((2, B, M, N), dtype=torch.int32, device=dev)
+    build.call("fused_hlt_batched_launch", digits, c0e, c1e, u, rk0, rk1,
+               perms, is_id, q32, qneg, out, B, nbeta, M, N, d)
     LAUNCHES[name] += 1
     return out

@@ -1,5 +1,6 @@
 """Device dispatch for the port's kernels, and the fused pipelines built on
-them — counterpart of ``repro/kernels/ops.py`` plus the pipelines of
+them — counterpart of ``repro/kernels/ops.py`` (every one of its entry
+points; ``kernels/ref.py`` holds the plain oracles) plus the pipelines of
 ``repro/kernels/basechange.py`` (``hoist_fused``, ``hoist_fused_db``,
 ``moddown_fused``).
 
@@ -12,10 +13,30 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from repro_torch.kernels import basechange as _bc
+from repro_torch.kernels import baseconv as _bcv
 from repro_torch.kernels import fused_hlt as _fh
+from repro_torch.kernels import modmul as _mm
 from repro_torch.kernels import ntt as _ntt
 
-_COUNTERS = (_fh.LAUNCHES, _bc.LAUNCHES, _ntt.LAUNCHES)
+_COUNTERS = (_fh.LAUNCHES, _bc.LAUNCHES, _ntt.LAUNCHES, _mm.LAUNCHES,
+             _bcv.LAUNCHES)
+
+
+def modmul(x, y, q32, qneg):
+    fn = _mm.modmul_cuda if x.is_cuda else _mm.modmul_plain
+    return fn(x, y, q32, qneg)
+
+
+def modadd(x, y, q32):
+    fn = _mm.modadd_cuda if x.is_cuda else _mm.modadd_plain
+    return fn(x, y, q32)
+
+
+def baseconv(x, hat_inv_m, q_own, qneg_own, W_m, D_mod_m, inv_d, q_gen,
+             qneg_gen):
+    fn = _bcv.baseconv_cuda if x.is_cuda else _bcv.baseconv_plain
+    return fn(x, hat_inv_m, q_own, qneg_own, W_m, D_mod_m, inv_d, q_gen,
+              qneg_gen)
 
 
 def ntt(x, psi_m, q32, qneg):
@@ -59,6 +80,12 @@ def fused_hlt_indexed(digits, c0e, c1e, u, rk0, rk1, perms, is_id, ct_slots,
 
 def fused_hlt(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
     fn = _fh.fused_hlt_cuda if digits.is_cuda else _fh.fused_hlt_plain
+    return fn(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg)
+
+
+def fused_hlt_batched(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
+    fn = (_fh.fused_hlt_batched_cuda if digits.is_cuda
+          else _fh.fused_hlt_batched_plain)
     return fn(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg)
 
 
