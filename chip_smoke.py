@@ -426,6 +426,8 @@ def phase_kernels(eng, records, l: int):
             v = eng.basis(idx)
             B = 2 if weight == 0 else 1
             x = rows(list(idx), B)
+            C = kntt.cluster_size(B * len(idx), N)
+            label += f"C={C} blocks={C * B * len(idx)} "
             if name == "ntt":
                 tabs = (v.psi_brv_mont, v.moduli_u32, v.qneg_inv)
                 kern, plain = kntt.ntt_cuda, kntt.ntt_plain
@@ -440,8 +442,63 @@ def phase_kernels(eng, records, l: int):
                 lambda: kern(x, *tabs), lambda: plain(x, *tabs),
                 (2 * B * len(idx) * N + len(idx) * N) * 4, nops,
                 reps=20, plain_reps=3, weight=weight)
+    phase_kernels_split(records, gen)
     phase_kernels_elementwise(eng, records, gen)
     ops.reset_launch_counts()
+
+
+def phase_kernels_split(records, gen):
+    """``ntt`` then ``intt`` on 4 rows of Set-C's moduli at logN 16 (a
+    row the block-resident kernels cannot hold): each against its plain
+    version (weight 0: checked and timed, no launch of the hemm), then the
+    round trip must return the input.  Then both at every cluster size
+    1-16 on Set-A rows, against the plain versions (tolerance: exact)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.params import SET_A, SET_C, get_context
+    from repro_torch.kernels import build, ntt as kntt
+
+    v = get_context(SET_C, gen.device).slc(np.arange(4))
+    N = SET_C.N
+    x = rand_residues((1, 4, N), v.moduli_u32, gen)
+    fwd = (v.psi_brv_mont, v.moduli_u32, v.qneg_inv)
+    inv = (v.psi_inv_brv_mont, v.n_inv_mont, v.moduli_u32, v.qneg_inv)
+    C = kntt.cluster_size(4, N)
+    label = f"Set-C logN 16 rows=4 C={C} blocks={4 * C}"
+    records["ntt"].add(label, lambda: kntt.ntt_cuda(x, *fwd),
+                       lambda: kntt.ntt_plain(x, *fwd), 12 * 4 * N,
+                       MONTMUL_OPS * 4 * ntt_montmuls(N), plain_reps=1,
+                       weight=0)
+    y = kntt.ntt_cuda(x, *fwd)
+    records["intt"].add(label, lambda: kntt.intt_cuda(y, *inv),
+                        lambda: kntt.intt_plain(y, *inv), 12 * 4 * N,
+                        MONTMUL_OPS * 4 * (ntt_montmuls(N) + N),
+                        plain_reps=1, weight=0)
+    if not torch.equal(kntt.intt_cuda(y, *inv), x):
+        raise AssertionError("Set-C ntt then intt does not return its input")
+    log(f"[kernels] Set-C logN 16: intt(ntt(x)) == x on 4 rows")
+    # every cluster size the kernels take, on Set-A rows (logN 13), through
+    # the C entry points (the wrapper picks only 1, 8 or 16 on the paths)
+    v = get_context(SET_A, gen.device).slc(np.arange(3))
+    x = rand_residues((2, 3, SET_A.N), v.moduli_u32, gen)
+    fwd = (v.psi_brv_mont, v.moduli_u32, v.qneg_inv)
+    inv = (v.psi_inv_brv_mont, v.n_inv_mont, v.moduli_u32, v.qneg_inv)
+    want, want_i = kntt.ntt_plain(x, *fwd), kntt.intt_plain(x, *inv)
+    for logc in range(5):
+        out, out_i, back = (torch.empty_like(x) for _ in range(3))
+        build.call("ntt_launch", x, x.stride(0), out, 2, 3, SET_A.logN, logc,
+                   *fwd)
+        build.call("intt_launch", x, x.stride(0), out_i, 2, 3, SET_A.logN,
+                   logc, *inv)
+        build.call("intt_launch", out, out.stride(0), back, 2, 3, SET_A.logN,
+                   logc, *inv)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, want) and torch.equal(out_i, want_i)
+                and torch.equal(back, x)):
+            raise AssertionError(f"ntt/intt with a cluster of {1 << logc} "
+                                 f"differ from their plain versions")
+    log(f"[kernels] Set-A logN 13, B=2 x 3 rows: ntt, intt and the round "
+        f"trip equal to the plain versions at every cluster size 1-16")
 
 
 def api_shapes(eng) -> dict:
@@ -699,6 +756,79 @@ def staged_call(prog, ctA, ctB, on_stage=None):
     return out, stages
 
 
+def profile_products(prog, ctA, ctB, first: int = 8, count: int = 4) -> str:
+    """One more call of the batched program with a ``torch.profiler``
+    window over products ``first`` … ``first + count − 1`` of its
+    mult → rescale loop (the engine's ``mult`` and ``rescale`` wrapped on
+    the instance for the call).  Returns the line to print: the device
+    busy share of the window (the union of the device events' intervals
+    over the window's host time, both ends synchronised) and the device ms
+    summed for the ``ntt``/``intt`` kernels and for all other device work;
+    "not measured" where the profiler records no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = prog.ctx.eng
+    mult, rescale = eng.mult, eng.rescale
+    state = {"k": None}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_stage(name):
+        if name == "step2":
+            state["k"] = 0
+
+    def p_mult(a, b, keys):
+        if state["k"] == first:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            state["t0"] = time.perf_counter()
+        return mult(a, b, keys)
+
+    def p_rescale(ct):
+        out = rescale(ct)
+        if state["k"] is not None:
+            state["k"] += 1
+            if state["k"] == first + count:
+                torch.cuda.synchronize()
+                state["wall"] = (time.perf_counter() - state["t0"]) * 1e3
+                prof.__exit__(None, None, None)
+        return out
+
+    eng.mult, eng.rescale = p_mult, p_rescale
+    try:
+        staged_call(prog, ctA, ctB, on_stage)
+    finally:
+        del eng.mult, eng.rescale
+    spans, ntt_us, other_us = [], 0.0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        if "ntt_fwd_split" in e.name or "ntt_inv_split" in e.name:
+            ntt_us += t1 - t0
+        else:
+            other_us += t1 - t0
+    wall = state["wall"]
+    if not spans:
+        return (f"[main] profiler window over products {first}-"
+                f"{first + count - 1} of the mult -> rescale loop: "
+                f"{wall:.3f} ms; device busy share: not measured (no device "
+                f"events recorded)")
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return (f"[main] profiler window over products {first}-{first + count - 1}"
+            f" of the mult -> rescale loop: {wall:.3f} ms on the host clock; "
+            f"device busy share {busy / 1e3 / wall:.4f} ({busy / 1e3:.3f} ms "
+            f"of device activity, {len(spans)} device events); ntt/intt "
+            f"kernels {ntt_us / 1e3:.3f} ms, all other device work "
+            f"{other_us / 1e3:.3f} ms")
+
+
 def counted_call(ctx, prog, ctA, ctB, batched: bool, l: int):
     """The path's counted call: every launch counter zeroed just before it
     and read just after, held against ``expected_launches``."""
@@ -771,6 +901,11 @@ def phase_main(params, shape):
     peak = torch.cuda.max_memory_allocated()
     _, st = staged_call(prog, ctA, ctB)
     log(f"[main] batched timed call: stage ms {fmt(st)}")
+    try:        # a measurement only: the run does not fail for it
+        log(profile_products(prog, ctA, ctB))
+    except Exception as e:          # noqa: BLE001
+        log(f"[main] device busy share: not measured (torch.profiler "
+            f"raised {type(e).__name__}: {e})")
     # the same program with the engine's transforms on the plain int64 NTT
     ctx.eng.datapath = "xla"
     try:

@@ -95,6 +95,209 @@ __device__ void block_intt(uint32_t* s, int logN,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Split transforms: one row of N = 2^logN values over a thread-block
+// cluster of C = 2^c blocks (ntt.cu; meant for reuse by the other row
+// kernels).  Write a row index j = a·n + r with n = N/C the chunk length,
+// a < C the chunk and r < n the offset in it.
+//
+// * Cross stages: the first c Cooley–Tukey stages (t = N/2 … n), or the
+//   last c Gentleman–Sande ones, pair indices of equal r; their twiddle
+//   depends only on a's top bits (C − 1 values).  The cluster's block of
+//   rank k owns the r-range [k·R, (k+1)·R), R = n/C, and runs them in
+//   registers, one r (C values) a thread at a time.
+// * Local stages: the other log2(n), on one chunk in one block's shared
+//   memory, with the global twiddle index 2^lm + a·2^(lm−c) + local group.
+//   The n − 1 twiddles chunk a needs are copied once into shared memory
+//   (split_load_twiddles), laid out as an n-point table, so a stage of 2^σ
+//   local groups reads [2^σ, 2^(σ+1)).  Each thread holds 2^P values
+//   (P ≤ 3) and runs P stages on them between two shared-memory round
+//   trips: a pass.
+// * Exchange: between the two, each value moves to the shared memory of
+//   the block that needs it next through distributed shared memory
+//   (cooperative_groups' map_shared_rank), fenced by cluster barriers.
+//
+// Shared memory holds n values at padded index split_pad(i), one spare
+// word every 32, so that a pass that gives each thread 8 neighbouring
+// values (t = 1, 2, 4) reads them without bank conflicts; then the n-point
+// twiddle table.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int split_pad(int i) { return i + (i >> 5); }
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Cross Cooley–Tukey stages lm = 0 … c−1 on v[a], a < C (one r).
+template <int LOGC>
+__device__ __forceinline__ void split_cross_fwd(uint32_t* v,
+                                                const uint32_t* __restrict__ psi,
+                                                uint32_t q, uint32_t qneg) {
+#pragma unroll
+  for (int lm = 0; lm < LOGC; ++lm) {
+    const int half = (1 << LOGC) >> (lm + 1);
+#pragma unroll
+    for (int g = 0; g < (1 << lm); ++g) {
+      const uint32_t w = __ldg(psi + (1 << lm) + g);
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        const int a0 = g * 2 * half + k, a1 = a0 + half;
+        const uint32_t x0 = v[a0], x1 = montmul(v[a1], w, q, qneg);
+        v[a0] = montadd(x0, x1, q);
+        v[a1] = montsub(x0, x1, q);
+      }
+    }
+  }
+}
+
+// Cross Gentleman–Sande stages (h = C/2 … 1 groups) on v[a], a < C.
+template <int LOGC>
+__device__ __forceinline__ void split_cross_inv(uint32_t* v,
+                                                const uint32_t* __restrict__ psii,
+                                                uint32_t q, uint32_t qneg) {
+#pragma unroll
+  for (int bit = 0; bit < LOGC; ++bit) {
+    const int half = 1 << bit, groups = (1 << LOGC) >> (bit + 1);
+#pragma unroll
+    for (int g = 0; g < groups; ++g) {
+      const uint32_t w = __ldg(psii + groups + g);
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        const int a0 = g * 2 * half + k, a1 = a0 + half;
+        const uint32_t x0 = v[a0], x1 = v[a1];
+        v[a0] = montadd(x0, x1, q);
+        v[a1] = montmul(montsub(x0, x1, q), w, q, qneg);
+      }
+    }
+  }
+}
+
+// Chunk a's twiddles into tws[1 … n): the local table index i of stage
+// σ = log2(i) holds the global psi[2^(c+σ) + a·2^σ + (i − 2^σ)], for the
+// forward and the inverse tables alike.  The caller synchronises.
+__device__ __forceinline__ void split_load_twiddles(
+    uint32_t* tws, int n, int c, int a, const uint32_t* __restrict__ psi) {
+  for (int i = threadIdx.x + 1; i < n; i += blockDim.x)
+    tws[i] = __ldg(psi + i + (((1 << c) + a - 1) << (31 - __clz(i))));
+}
+
+// One forward pass over a chunk (length n = 2^ln; tws its twiddle table):
+// local stages s0 … s0+P−1, i.e. the P index bits ln−s0−1 … b = ln−s0−P.
+// A unit u is the 2^P indices (hi << (b+P)) | (e << b) | lo, e < 2^P.  In
+// place in s.
+template <int P>
+__device__ void split_pass_fwd(uint32_t* s, const uint32_t* tws, int ln,
+                               int s0, uint32_t q, uint32_t qneg) {
+  const int b = ln - s0 - P;
+  for (int u = threadIdx.x; u < (1 << (ln - P)); u += blockDim.x) {
+    const int lo = u & ((1 << b) - 1), hi = u >> b;
+    const int base = (hi << (b + P)) | lo;
+    uint32_t v[1 << P];
+#pragma unroll
+    for (int e = 0; e < (1 << P); ++e) v[e] = s[split_pad(base | (e << b))];
+#pragma unroll
+    for (int st = 0; st < P; ++st) {
+      const int half = 1 << (P - 1 - st);
+      const uint32_t* tw = tws + (1 << (s0 + st)) + (hi << st);
+#pragma unroll
+      for (int g = 0; g < (1 << st); ++g) {
+        const uint32_t w = tw[g];
+#pragma unroll
+        for (int k = 0; k < half; ++k) {
+          const int e0 = g * 2 * half + k, e1 = e0 + half;
+          const uint32_t x0 = v[e0], x1 = montmul(v[e1], w, q, qneg);
+          v[e0] = montadd(x0, x1, q);
+          v[e1] = montsub(x0, x1, q);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < (1 << P); ++e) s[split_pad(base | (e << b))] = v[e];
+  }
+}
+
+// Every local forward stage of a chunk: a first pass of 1–3 stages, then
+// passes of 3, the last on bits 2 … 0.  Ends with the chunk complete.
+__device__ void split_local_fwd(uint32_t* s, const uint32_t* tws, int ln,
+                                uint32_t q, uint32_t qneg) {
+  int s0 = 0;
+  for (int P = (ln - 1) % 3 + 1; s0 < ln; s0 += P, P = 3) {
+    if (P == 1) split_pass_fwd<1>(s, tws, ln, s0, q, qneg);
+    else if (P == 2) split_pass_fwd<2>(s, tws, ln, s0, q, qneg);
+    else split_pass_fwd<3>(s, tws, ln, s0, q, qneg);
+    __syncthreads();
+  }
+}
+
+// The inverse pass on bits b … b+P−1 (t = 2^b … 2^(b+P−1)) of the unit
+// u of a chunk (tws its twiddle table); v holds the unit's 2^P values in
+// and out.
+template <int P>
+__device__ __forceinline__ void split_unit_inv(uint32_t* v, const uint32_t* tws,
+                                               int ln, int b, int u, uint32_t q,
+                                               uint32_t qneg) {
+  const int hi = u >> b;
+#pragma unroll
+  for (int st = 0; st < P; ++st) {
+    const int half = 1 << st;
+    const uint32_t* tw = tws + (1 << (ln - b - st - 1)) + (hi << (P - st - 1));
+#pragma unroll
+    for (int g = 0; g < (1 << (P - st - 1)); ++g) {
+      const uint32_t w = tw[g];
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        const int e0 = g * 2 * half + k, e1 = e0 + half;
+        const uint32_t x0 = v[e0], x1 = v[e1];
+        v[e0] = montadd(x0, x1, q);
+        v[e1] = montmul(montsub(x0, x1, q), w, q, qneg);
+      }
+    }
+  }
+}
+
+template <int P>
+__device__ void split_pass_inv(uint32_t* s, const uint32_t* tws, int ln, int b,
+                               uint32_t q, uint32_t qneg) {
+  for (int u = threadIdx.x; u < (1 << (ln - P)); u += blockDim.x) {
+    const int base = ((u >> b) << (b + P)) | (u & ((1 << b) - 1));
+    uint32_t v[1 << P];
+#pragma unroll
+    for (int e = 0; e < (1 << P); ++e) v[e] = s[split_pad(base | (e << b))];
+    split_unit_inv<P>(v, tws, ln, b, u, q, qneg);
+#pragma unroll
+    for (int e = 0; e < (1 << P); ++e) s[split_pad(base | (e << b))] = v[e];
+  }
+}
+
+// The local inverse stages of a chunk but the last pass (bits ln−3 …
+// ln−1, which the caller runs with split_unit_inv<3> into registers): a
+// first pass of 1–3 stages on bits 0 …, then passes of 3.  Needs ln >= 3.
+__device__ void split_local_inv(uint32_t* s, const uint32_t* tws, int ln,
+                                uint32_t q, uint32_t qneg) {
+  int b = 0;
+  for (int P = (ln - 1) % 3 + 1; b < ln - 3; b += P, P = 3) {
+    if (P == 1) split_pass_inv<1>(s, tws, ln, b, q, qneg);
+    else if (P == 2) split_pass_inv<2>(s, tws, ln, b, q, qneg);
+    else split_pass_inv<3>(s, tws, ln, b, q, qneg);
+    __syncthreads();
+  }
+}
+
+// Threads per block of a split transform of chunk length n: one thread per
+// 8-value unit (the inverse holds its last pass in registers across the
+// exchange), at least one warp.
+inline int split_threads(int n) { return n >= 256 ? n / 8 : 32; }
+
+// The padded chunk, then its twiddle table.
+inline size_t split_smem_bytes(int n) {
+  return sizeof(uint32_t) * static_cast<size_t>(2 * n + (n >> 5));
+}
+
 // Threads per block for a block-resident row of 2^logN values.
 inline int row_threads(int logN) {
   int half = 1 << (logN - 1);

@@ -2,7 +2,8 @@
 // datapath (encode, the keyswitch inside mult, its ModDown, rescale) —
 // forward NTT (standard-domain natural-order coefficients -> bit-reversed
 // evaluation order) and inverse NTT including the final N^-1 factor, both
-// with Montgomery twiddles (common.cuh block_ntt_fwd / block_intt).
+// with Montgomery twiddles; the same butterflies as ntt_mont_raw /
+// intt_mont_raw (core/ntt.py), so the output is the same bit for bit.
 //
 // Replaces: src/repro/kernels/ntt.py:ntt and :intt (the TPU kernels, grid
 // (batch, limb), one VMEM-resident pass of all log2(N) stages per row).
@@ -10,88 +11,203 @@
 // Bound on an H100: bytes.  Each (batch, limb) row is read once and
 // written once (8N bytes) and each limb's twiddle row is read once (4N);
 // the N/2·log2(N) Montgomery products per row stay far below the card's
-// integer rate.  Design: one block per (limb, batch) row, the row resident
-// in dynamic shared memory for all stages (128 KiB at N = 2^15, opt-in
-// above 48 KB), twiddles through __ldg.  Inputs are row slices of larger
-// polynomials (a digit's limbs, the special limbs, one last limb): rows
-// are contiguous, so the kernel takes a batch stride and reads them in
-// place.  The engine calls it on 1-22 rows at a time: fewer blocks than
-// the 132 SMs, so one launch is latency-bound, not bandwidth-bound.
+// integer rate.  The engine calls it on 1-22 rows at a time, so a launch
+// is short and mostly latency: the design spreads each row over several
+// SMs and keeps the per-stage cost in registers.
+//
+// Design: one (batch, limb) row per thread-block cluster of C = 2^c blocks
+// (C from the row count and N, kernels/ntt.py cluster_size; 1-16), the
+// split transform of common.cuh.  Forward: block k loads the C segments
+// x[a·n + k·R + (0 … R)] (n = N/C, R = n/C; coalesced), runs the c cross
+// stages in registers, and stores each value into the shared memory of
+// the block that owns its chunk (distributed shared memory); after a
+// cluster barrier block a runs the log2(n) local stages on chunk a, three
+// stages a pass with 8 values a thread, and writes chunk a out.  Inverse:
+// the mirror — block a loads chunk a, runs the local stages (the last pass
+// held in registers across a cluster barrier), scatters each value to the
+// block owning its r, and that block runs the c cross stages, the N^-1
+// factor, and writes its C segments.  Each block copies the n − 1 local
+// twiddles of its chunk into shared memory once, during the first loads,
+// so the passes read them there.  Shared memory per block: the padded
+// chunk and its twiddle table, 2n values (33 KB at N = 2^15, C = 8; a
+// 2^16 row over 8 blocks, 66 KB, opts in above 48 KB).
+// Inputs are row slices of larger polynomials (a digit's limbs, the
+// special limbs, one last limb): rows are contiguous, so the kernel takes
+// a batch stride and reads them in place.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ void load_row(uint32_t* s,
-                                         const uint32_t* __restrict__ xr,
-                                         int N) {
-  for (int j = threadIdx.x; j < N; j += blockDim.x) s[j] = xr[j];
+template <int LOGC>
+__global__ void __launch_bounds__(1024)
+    ntt_fwd_split(const uint32_t* __restrict__ x, long long x_bstride,
+                  uint32_t* __restrict__ out, int M, int logN,
+                  const uint32_t* __restrict__ psi,
+                  const uint32_t* __restrict__ q32,
+                  const uint32_t* __restrict__ qneg) {
+  constexpr int C = 1 << LOGC;
+  extern __shared__ uint32_t s[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.block_rank());
+  const int m = blockIdx.x >> LOGC;
+  const long long b = blockIdx.y;
+  const int ln = logN - LOGC, n = 1 << ln, R = n >> LOGC;
+  const long long row = static_cast<long long>(m) << logN;
+  const uint32_t* xr = x + b * x_bstride + row + k * R;
+  const uint32_t* tw = psi + row;
+  const uint32_t q = q32[m], qn = qneg[m];
+
+  // every block of the cluster must be running before its shared memory
+  // is written: arrive, copy the chunk's twiddles, wait
+  fame::cluster_arrive_relaxed();
+  uint32_t* tws = s + n + (n >> 5);
+  fame::split_load_twiddles(tws, n, LOGC, k, tw);
+  fame::cluster_wait();
+  for (int u = threadIdx.x; u < R; u += blockDim.x) {
+    uint32_t v[C];
+#pragma unroll
+    for (int a = 0; a < C; ++a) v[a] = xr[a * n + u];
+    fame::split_cross_fwd<LOGC>(v, tw, q, qn);
+#pragma unroll
+    for (int a = 0; a < C; ++a)
+      cluster.map_shared_rank(s, a)[fame::split_pad(k * R + u)] = v[a];
+  }
+  cluster.sync();                     // chunk k is complete in block k
+
+  fame::split_local_fwd(s, tws, ln, q, qn);
+  uint32_t* o = out + (b * M + m) * (1LL << logN) + (static_cast<long long>(k) << ln);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = s[fame::split_pad(i)];
+}
+
+template <int LOGC>
+__global__ void __launch_bounds__(1024)
+    ntt_inv_split(const uint32_t* __restrict__ x, long long x_bstride,
+                  uint32_t* __restrict__ out, int M, int logN,
+                  const uint32_t* __restrict__ psii,
+                  const uint32_t* __restrict__ ninv,
+                  const uint32_t* __restrict__ q32,
+                  const uint32_t* __restrict__ qneg) {
+  constexpr int C = 1 << LOGC;
+  extern __shared__ uint32_t s[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.block_rank());
+  const int m = blockIdx.x >> LOGC;
+  const long long b = blockIdx.y;
+  const int ln = logN - LOGC, n = 1 << ln, R = n >> LOGC;
+  const long long row = static_cast<long long>(m) << logN;
+  const uint32_t* tw = psii + row;
+  const uint32_t q = q32[m], qn = qneg[m];
+
+  // chunk k and its twiddles: load, then every local stage but the last pass
+  const uint32_t* xr = x + b * x_bstride + row + (static_cast<long long>(k) << ln);
+  uint32_t* tws = s + n + (n >> 5);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[fame::split_pad(i)] = xr[i];
+  fame::split_load_twiddles(tws, n, LOGC, k, tw);
   __syncthreads();
+  fame::split_local_inv(s, tws, ln, q, qn);
+  const int b3 = ln - 3, u = threadIdx.x;
+  uint32_t v[8];
+  if (u < (1 << b3)) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = s[fame::split_pad((e << b3) | u)];
+    fame::split_unit_inv<3>(v, tws, ln, b3, u, q, qn);
+  }
+  cluster.sync();                     // every block is done with its chunk
+  if (u < (1 << b3)) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = (e << b3) | u;    // to the owner of r, segment k
+      cluster.map_shared_rank(s, r >> (ln - LOGC))[fame::split_pad(
+          k * R + (r & (R - 1)))] = v[e];
+    }
+  }
+  cluster.sync();                     // block k holds all C segments of its r
+
+  const uint32_t ni = ninv[m];
+  uint32_t* o = out + (b * M + m) * (1LL << logN) + k * R;
+  for (int w = threadIdx.x; w < R; w += blockDim.x) {
+    uint32_t c[C];
+#pragma unroll
+    for (int a = 0; a < C; ++a) c[a] = s[fame::split_pad(a * R + w)];
+    fame::split_cross_inv<LOGC>(c, tw, q, qn);
+#pragma unroll
+    for (int a = 0; a < C; ++a) o[a * n + w] = fame::montmul(c[a], ni, q, qn);
+  }
 }
 
-__global__ void ntt_fwd_kernel(const uint32_t* __restrict__ x,
-                               long long x_bstride,
-                               uint32_t* __restrict__ out, int M, int logN,
-                               const uint32_t* __restrict__ psi,
-                               const uint32_t* __restrict__ q32,
-                               const uint32_t* __restrict__ qneg) {
-  extern __shared__ uint32_t s[];
-  const int r = blockIdx.x;
-  const long long b = blockIdx.y;
-  const int N = 1 << logN;
-  load_row(s, x + b * x_bstride + static_cast<long long>(r) * N, N);
-  fame::block_ntt_fwd(s, logN, psi + static_cast<long long>(r) * N, q32[r],
-                      qneg[r]);
-  uint32_t* o = out + (b * M + r) * static_cast<long long>(N);
-  for (int j = threadIdx.x; j < N; j += blockDim.x) o[j] = s[j];
+template <typename Kernel, typename... Args>
+cudaError_t launch_split(Kernel kernel, int logc, int B, int M, int logN,
+                         cudaStream_t stream, Args... args) {
+  const int n = 1 << (logN - logc);
+  const size_t smem = fame::split_smem_bytes(n);
+  if (logc > 3) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  if (smem > 48 * 1024) {             // n = 8192: a 2^16 row over 8 blocks
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << logc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(M) << logc, B);
+  cfg.blockDim = dim3(fame::split_threads(n));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-__global__ void ntt_inv_kernel(const uint32_t* __restrict__ x,
-                               long long x_bstride,
-                               uint32_t* __restrict__ out, int M, int logN,
-                               const uint32_t* __restrict__ psii,
-                               const uint32_t* __restrict__ ninv,
-                               const uint32_t* __restrict__ q32,
-                               const uint32_t* __restrict__ qneg) {
-  extern __shared__ uint32_t s[];
-  const int r = blockIdx.x;
-  const long long b = blockIdx.y;
-  const int N = 1 << logN;
-  const uint32_t q = q32[r], qn = qneg[r];
-  load_row(s, x + b * x_bstride + static_cast<long long>(r) * N, N);
-  fame::block_intt(s, logN, psii + static_cast<long long>(r) * N, q, qn);
-  const uint32_t ni = ninv[r];
-  uint32_t* o = out + (b * M + r) * static_cast<long long>(N);
-  for (int j = threadIdx.x; j < N; j += blockDim.x)
-    o[j] = fame::montmul(s[j], ni, q, qn);
+// A cluster of 2^logc blocks (at most 16) over chunks of n = 2^(logN -
+// logc) values: at least 8 values a chunk (the last pass), at least one r
+// a block in the cross stages (n >= C), at most n/8 = 1024 threads.
+bool split_shape_ok(int logN, int logc) {
+  const int ln = logN - logc;
+  return logc >= 0 && logc <= 4 && ln >= 3 && ln >= logc && ln <= 13;
 }
 
 }  // namespace
 
+// the kernels by log2 of the cluster size
+const decltype(&ntt_fwd_split<0>) kFwd[] = {
+    ntt_fwd_split<0>, ntt_fwd_split<1>, ntt_fwd_split<2>, ntt_fwd_split<3>,
+    ntt_fwd_split<4>};
+const decltype(&ntt_inv_split<0>) kInv[] = {
+    ntt_inv_split<0>, ntt_inv_split<1>, ntt_inv_split<2>, ntt_inv_split<3>,
+    ntt_inv_split<4>};
+
 extern "C" int ntt_launch(const uint32_t* x, long long x_bstride,
-                          uint32_t* out, int B, int M, int logN,
+                          uint32_t* out, int B, int M, int logN, int logc,
                           const uint32_t* psi, const uint32_t* q32,
                           const uint32_t* qneg, void* stream) {
-  cudaError_t err = fame::reserve_row_smem(ntt_fwd_kernel, logN);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(M, B);
-  ntt_fwd_kernel<<<grid, fame::row_threads(logN), sizeof(uint32_t) << logN,
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, x_bstride, out, M, logN, psi, q32, qneg);
-  return static_cast<int>(cudaGetLastError());
+  if (!split_shape_ok(logN, logc)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_split(
+      kFwd[logc], logc, B, M, logN, static_cast<cudaStream_t>(stream), x,
+      x_bstride, out, M, logN, psi, q32, qneg));
 }
 
 extern "C" int intt_launch(const uint32_t* x, long long x_bstride,
-                           uint32_t* out, int B, int M, int logN,
+                           uint32_t* out, int B, int M, int logN, int logc,
                            const uint32_t* psii, const uint32_t* ninv,
                            const uint32_t* q32, const uint32_t* qneg,
                            void* stream) {
-  cudaError_t err = fame::reserve_row_smem(ntt_inv_kernel, logN);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(M, B);
-  ntt_inv_kernel<<<grid, fame::row_threads(logN), sizeof(uint32_t) << logN,
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, x_bstride, out, M, logN, psii, ninv, q32, qneg);
-  return static_cast<int>(cudaGetLastError());
+  if (!split_shape_ok(logN, logc)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_split(
+      kInv[logc], logc, B, M, logN, static_cast<cudaStream_t>(stream), x,
+      x_bstride, out, M, logN, psii, ninv, q32, qneg));
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -144,15 +144,16 @@ LAUNCHES = {"intt_scale": 0, "hoist_db": 0, "moddown_finish": 0,
             "baseconv_ntt": 0}
 
 
-def _logn(N: int) -> int:
+def _logn(N: int, max_logn: int = MAX_LOGN) -> int:
     logN = N.bit_length() - 1
     if N != 1 << logN or logN < 1:
         raise ValueError(f"ring dimension {N} is not a power of two")
-    if logN > MAX_LOGN:
+    if logN > max_logn:
         raise ValueError(
-            f"N = 2^{logN}: one u32 row is {4 * N // 1024} KiB, more than a "
-            f"Hopper block's shared memory holds; the block-resident NTT "
-            f"supports N <= 2^{MAX_LOGN} (a split NTT is not ported yet)")
+            f"N = 2^{logN}: one u32 row is {4 * N // 1024} KiB; this kernel "
+            f"supports N <= 2^{max_logn} (the block-resident kernels hold a "
+            f"row in one block's shared memory, at most 2^{MAX_LOGN}; only "
+            f"ntt / intt split a row over a cluster)")
     return logN
 
 

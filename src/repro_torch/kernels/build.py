@@ -46,8 +46,8 @@ SIGNATURES = {
                          [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I]),
     "baseconv_ntt_launch": ("hoist",
                             [P, P, P, I, I, I, I, P, P, P, P, P, P, P]),
-    "ntt_launch": ("ntt", [P, LL, P, I, I, I, P, P, P]),
-    "intt_launch": ("ntt", [P, LL, P, I, I, I, P, P, P, P]),
+    "ntt_launch": ("ntt", [P, LL, P, I, I, I, I, P, P, P]),
+    "intt_launch": ("ntt", [P, LL, P, I, I, I, I, P, P, P, P]),
     "fused_hlt_batched_launch": ("fused_hlt",
                                  [P, P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I]),
