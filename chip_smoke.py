@@ -20,7 +20,17 @@ Phases, each printing its lines before the last:
    differs from the float64 oracle ``kernels/ref.py`` ``baseconv_ref``,
    printed as a finding) and hold its output array-equal (tolerance:
    exact, max_abs_err 0) against the plain PyTorch version on the same
-   inputs; print the median CUDA-event time of both;
+   inputs; print the median CUDA-event time of both.  The fused HLT
+   kernels also run on random permutations (the device-memory gather,
+   weight 0) beside the Galois tables (the staged source tile), with the
+   (block, rotation) pairs of each path counted on the card and held
+   against ``tile_sources``; ``moddown_finish`` also at the unbatched
+   shape (2 polynomials, weight 0: 258 launches of the unbatched hemm),
+   on 4 Set-C polynomials (logN 16, weight 0) and at every cluster size
+   1-16 on Set-A rows; then the cluster sizes 4, 8, 16 of ``moddown_finish``
+   and the limb groups 1, 2, 4, 8 of ``fused_hlt_indexed`` at the Set-B
+   Step-1 and Step-2 shapes, each checked and timed, and the Step-2
+   ``moddown_finish`` with one drop row and ``ntt`` alone over its rows;
    then the kernel API (``repro_torch.kernels.ops``, the path of
    ``modmul``, ``modadd``, ``baseconv`` and ``fused_hlt_batched``, as the
    reference's benchmarks call it): one counted run at those shapes, every
@@ -31,7 +41,9 @@ Phases, each printing its lines before the last:
    ``compile_hemm(schedule="pallas", rotation_chunk=1)``, a warm-up call,
    then the counted call (every kernel's launch counter is zeroed just
    before it and read just after, and must equal the path's expected
-   counts) and a timed call; one more call with the engine on its
+   counts, and every non-identity rotation of the fused HLT kernels must
+   take the staged source tile) and a timed call; one more call with the
+   engine on its
    ``"xla"`` lowering, array-equal; decrypt, require finite values of the
    right shape, and hold the product against numpy A·B within 0.05 once
    the reference algorithm's rescale bias is cancelled by the four sign
@@ -327,12 +339,17 @@ def phase_kernels(eng, records, l: int):
         x_out = x_full[:, :R_out]
         mtabs = (mt["w"], mt["d"], mt["inv_d"], mt["psi_out"], mt["p_inv"],
                  mt["q_out"], mt["qneg_out"])
-        records["moddown_finish"].add(
-            f"step{step} P={P} rows={R_out} nd={nd}",
-            lambda: bc.moddown_finish_cuda(x_out, y, *mtabs),
-            lambda: bc.moddown_finish_plain(x_out, y, *mtabs),
-            (2 * P * R_out * N + P * nd * N + R_out * N) * 4,
-            MONTMUL_OPS * P * R_out * (N * (nd + 2) + ntt_montmuls(N)))
+        for P_, w_ in ((P, 1), (2, 0)):  # the batched launch; unbatched
+            C = kntt.cluster_size(P_ * R_out, N)
+            records["moddown_finish"].add(
+                f"step{step} P={P_} rows={R_out} nd={nd} C={C}"
+                + ("" if w_ else f" (unbatched shape: {2 if step == 1 else 2 * l}"
+                   f" launches a hemm)"),
+                lambda: bc.moddown_finish_cuda(x_out[:P_], y[:P_], *mtabs),
+                lambda: bc.moddown_finish_plain(x_out[:P_], y[:P_], *mtabs),
+                (2 * P_ * R_out * N + P_ * nd * N + R_out * N) * 4,
+                MONTMUL_OPS * P_ * R_out * (N * (nd + 2) + ntt_montmuls(N)),
+                weight=w_)
         del x_full, x_drop, y, x_out
 
         # -- fused_hlt_indexed -------------------------------------------
@@ -361,6 +378,22 @@ def phase_kernels(eng, records, l: int):
             f"step{step} B={B} S={S} d={d} M={M}",
             lambda: fh.fused_hlt_indexed_cuda(*args),
             lambda: fh.fused_hlt_indexed_plain(*args), fb, fo, reps=3)
+        # random permutations: no tile maps onto one source tile, so every
+        # non-identity rotation gathers from device memory (weight 0)
+        rperms = torch.argsort(torch.rand((S, d, N), generator=gen,
+                                          device=dev), dim=-1).to(torch.int32)
+        rargs = args[:6] + (rperms,) + args[7:]
+        records["fused_hlt_indexed"].add(
+            f"step{step} B={B} S={S} d={d} M={M} random permutations",
+            lambda: fh.fused_hlt_indexed_cuda(*rargs),
+            lambda: fh.fused_hlt_indexed_plain(*rargs), fb, fo, reps=3,
+            weight=0)
+        for kind, pm in (("Galois", perms), ("random", rperms)):
+            check_paths(f"fused_hlt_indexed step{step} {kind}",
+                        lambda: fh.fused_hlt_indexed_cuda(
+                            *args[:6], pm, *args[7:]),
+                        pm, is_id, dgs.tolist(), M, N,
+                        staged_only=kind == "Galois")
 
         # -- fused_hlt_batched: the same batch on operands gathered per
         #    batch element (digits[ct_slots], u[diag_slots], ...); equal to
@@ -378,7 +411,13 @@ def phase_kernels(eng, records, l: int):
             lambda: fh.fused_hlt_batched_cuda(*bargs),
             lambda: fh.fused_hlt_batched_plain(*bargs),
             fb + (B - 2) * (nbeta + 2) * M * N * 4, fo, reps=3)
-        del bargs
+        rbargs = bargs[:6] + (rperms[dgs.long()],) + bargs[7:]
+        records["fused_hlt_batched"].add(
+            f"step{step} B={B} d={d} M={M} random permutations",
+            lambda: fh.fused_hlt_batched_cuda(*rbargs),
+            lambda: fh.fused_hlt_batched_plain(*rbargs),
+            fb + (B - 2) * (nbeta + 2) * M * N * 4, fo, reps=3, weight=0)
+        del bargs, rbargs
 
         # -- fused_hlt: one ciphertext and one diagonal set (slot 0 of each
         #    of the operands above); the unbatched program runs 2 at Step 1
@@ -386,14 +425,20 @@ def phase_kernels(eng, records, l: int):
         one = (digits[0], c0e[0], c1e[0], u[0], rk0[0], rk1[0], perms[0],
                is_id[0], view.moduli_u32, view.qneg_inv)
         i0 = ids_per_b[0]
+        one_b = ((nbeta + 2) * M * N + d * M * N
+                 + (d - i0) * (2 * nbeta * M * N + N) + d + 2 * M * N) * 4
+        one_o = MONTMUL_OPS * M * N * ((d - i0) * (2 * nbeta + 2) + i0 * 2)
         records["fused_hlt"].add(
             f"step{step} d={d} M={M}",
             lambda: fh.fused_hlt_cuda(*one), lambda: fh.fused_hlt_plain(*one),
-            ((nbeta + 2) * M * N + d * M * N
-             + (d - i0) * (2 * nbeta * M * N + N) + d + 2 * M * N) * 4,
-            MONTMUL_OPS * M * N * ((d - i0) * (2 * nbeta + 2) + i0 * 2),
-            reps=3, weight=2 if step == 1 else 2 * l)
-        del digits, c0e, c1e, u, rk0, rk1, perms, args, one
+            one_b, one_o, reps=3, weight=2 if step == 1 else 2 * l)
+        rone = one[:6] + (rperms[0],) + one[7:]
+        records["fused_hlt"].add(
+            f"step{step} d={d} M={M} random permutations",
+            lambda: fh.fused_hlt_cuda(*rone), lambda: fh.fused_hlt_plain(*rone),
+            one_b, one_o, reps=3, weight=0)
+        del digits, c0e, c1e, u, rk0, rk1, perms, rperms, args, rargs, one
+        del rone
         torch.cuda.empty_cache()
 
     # -- ntt / intt: the engine's transforms in one mult → rescale at the
@@ -444,7 +489,160 @@ def phase_kernels(eng, records, l: int):
                 reps=20, plain_reps=3, weight=weight)
     phase_kernels_split(records, gen)
     phase_kernels_elementwise(eng, records, gen)
+    phase_kernels_shapes(eng, gen, l)
     ops.reset_launch_counts()
+
+
+def expected_paths(perms, is_id, diag_slots, M: int, N: int) -> list:
+    """[staged, gathered, identity] (block, rotation) pairs of one fused HLT
+    launch whose batch element b runs diagonal set diag_slots[b]: per
+    limb group and rotation, each tile whose positions come from one
+    source tile is staged (``fused_hlt.tile_sources``)."""
+    import torch
+    from repro_torch.kernels import fused_hlt as fh
+    T = fh.tile_size(N)
+    groups = -(-M // fh.limb_group(M, perms.shape[1]))
+    one = (fh.tile_sources(perms, T) >= 0).sum(dim=-1)        # (S, d)
+    ids = is_id[..., 0] != 0
+    slots = torch.as_tensor(diag_slots, device=perms.device).long()
+    one, ids = one[slots], ids[slots]
+    tiles = N // T
+    return [groups * int(one[~ids].sum()),
+            groups * int((tiles - one)[~ids].sum()),
+            groups * tiles * int(ids.sum())]
+
+
+def count_paths(fn) -> list:
+    """[staged, gathered, identity] (block, rotation) pairs the fused HLT
+    kernels count on the card over ``fn()``."""
+    import torch
+    from repro_torch.kernels import fused_hlt as fh
+    fh.PATHS = torch.zeros(3, dtype=torch.int32, device="cuda")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fh.PATHS.tolist()
+    finally:
+        fh.PATHS = None
+
+
+def check_paths(label, fn, perms, is_id, diag_slots, M, N, staged_only):
+    got = count_paths(fn)
+    want = expected_paths(perms, is_id, diag_slots, M, N)
+    if got != want or (staged_only and got[1] != 0):
+        raise AssertionError(f"{label}: paths (staged, gathered, identity) "
+                             f"{got}, expected {want}")
+    log(f"[kernels] {label}: (block, rotation) pairs staged {got[0]}, "
+        f"gathered from device memory {got[1]}, identity {got[2]} (as "
+        f"tile_sources predicts)")
+
+
+def moddown_parts(x, y, mtabs, logN: int):
+    """What the Step-2 ``moddown_finish`` launch is made of, at C = 8: the
+    same launch with one drop row (a BaseConv from nd = 1, held against
+    its plain version), and ``ntt`` alone over the same P·R target rows."""
+    import torch
+    from repro_torch.kernels import basechange as bc, build, ntt as kntt
+    P, R, _ = x.shape
+    w, d, inv_d, psi, p_inv, q, qn = mtabs
+    one = (w[:, :1].contiguous(), d, inv_d[:1].contiguous(), psi, p_inv, q,
+           qn)
+    y1 = y[:, :1].contiguous()
+
+    def nd1():
+        out = torch.empty_like(x)
+        build.call("moddown_finish_launch", x, x.stride(0), y1, out, P, R, 1,
+                   logN, 3, *one)
+        return out
+
+    def ntt():
+        out = torch.empty_like(x)
+        build.call("ntt_launch", x, x.stride(0), out, P, R, logN, 3, psi, q,
+                   qn)
+        return out
+    if not (torch.equal(nd1(), bc.moddown_finish_plain(x, y1, *one))
+            and torch.equal(ntt(), kntt.ntt_plain(x, psi, q, qn))):
+        raise AssertionError("moddown_finish nd=1 or ntt over its rows "
+                             "differs from plain")
+    log(f"[kernels] moddown_finish step 2 P={P} R={R} C=8: with nd=1 "
+        f"{device_ms(nd1, cuda_ms(nd1, 3)):.4f} ms on the device; ntt alone "
+        f"over the same {P * R} rows {device_ms(ntt, cuda_ms(ntt, 3)):.4f} ms "
+        f"(both equal to plain)")
+
+
+def phase_kernels_shapes(eng, gen, l: int):
+    """The launch shapes the wrappers choose between, through the C entry
+    points at the Set-B hemm's shapes, each output held equal to the plain
+    version and its device time printed: ``moddown_finish`` over clusters
+    of 4, 8 and 16 at Step 1 (4 polynomials), Step 2 (2·2·l) and the
+    unbatched shape (2); ``fused_hlt_indexed`` with limb groups of 1, 2, 4
+    and 8 at Step 1 and Step 2 on the Galois tables."""
+    import torch
+    from repro_torch.kernels import basechange as bc, build, fused_hlt as fh
+    from repro_torch.kernels import ntt as kntt
+
+    p, dev = eng.params, eng.device
+    N = p.N
+    for step, level, P in ((1, p.L, 4), (2, p.L - 1, 4 * l),
+                           ("unbatched", p.L - 1, 2)):
+        mt = eng.fused_moddown_tables(level)
+        R, nd = mt["n_out"], len(mt["drop_idx"])
+        x = rand_residues((P, R, N), mt["q_out"], gen)
+        y = rand_residues((P, nd, N), mt["q_drop"], gen)
+        mtabs = (mt["w"], mt["d"], mt["inv_d"], mt["psi_out"], mt["p_inv"],
+                 mt["q_out"], mt["qneg_out"])
+        want = bc.moddown_finish_plain(x, y, *mtabs)
+        times = []
+        for logc in (2, 3, 4):
+            def run(logc=logc):
+                out = torch.empty_like(x)
+                build.call("moddown_finish_launch", x, x.stride(0), y, out, P,
+                           R, nd, p.logN, logc, *mtabs)
+                return out
+            if not torch.equal(run(), want):
+                raise AssertionError(f"moddown_finish step {step} C="
+                                     f"{1 << logc} differs from plain")
+            times.append(f"C={1 << logc} {device_ms(run, cuda_ms(run, 3)):.4f}")
+        log(f"[kernels] moddown_finish step {step} P={P} R={R} nd={nd}: equal "
+            f"to plain at every cluster size; device ms {', '.join(times)} "
+            f"(wrapper: C={kntt.cluster_size(P * R, N)})")
+        if step == 2:
+            moddown_parts(x, y, mtabs, p.logN)
+        del x, y, want
+    for step, level, B in ((1, p.L, 2), (2, p.L - 1, 2 * l)):
+        full = eng.tools.digit_bases(level)[0][2]
+        view = eng.basis(full)
+        M, nbeta = len(full), len(eng.tools.digit_bases(level))
+        perms, is_id = rotation_tables(eng, step)
+        S, d = perms.shape[:2]
+        q = view.moduli_u32
+        args = (rand_residues((2, nbeta, M, N), q, gen),
+                rand_residues((2, M, N), q, gen),
+                rand_residues((2, M, N), q, gen),
+                rand_residues((S, d, M, N), q, gen),
+                rand_residues((S, d, nbeta, M, N), q, gen),
+                rand_residues((S, d, nbeta, M, N), q, gen), perms, is_id,
+                torch.tensor([0, 1] if step == 1 else [0] * l + [1] * l,
+                             dtype=torch.int32, device=dev),
+                torch.arange(S, dtype=torch.int32, device=dev), q,
+                view.qneg_inv)
+        want = fh.fused_hlt_indexed_plain(*args)
+        times = []
+        for g in (1, 2, 4, 8):
+            def run(g=g):
+                out = torch.empty((2, B, M, N), dtype=torch.int32, device=dev)
+                build.call("fused_hlt_indexed_launch", *args, out, B, nbeta,
+                           M, N, d, g, None)
+                return out
+            if not torch.equal(run(), want):
+                raise AssertionError(f"fused_hlt_indexed step {step} g={g} "
+                                     f"differs from plain")
+            times.append(f"g={g} {device_ms(run, cuda_ms(run, 3)):.4f}")
+        log(f"[kernels] fused_hlt_indexed step {step} B={B} d={d} M={M}: "
+            f"equal to plain at every limb group; device ms "
+            f"{', '.join(times)} (wrapper: g={fh.limb_group(M, d)})")
+        del args, want
+        torch.cuda.empty_cache()
 
 
 def phase_kernels_split(records, gen):
@@ -452,7 +650,9 @@ def phase_kernels_split(records, gen):
     row the block-resident kernels cannot hold): each against its plain
     version (weight 0: checked and timed, no launch of the hemm), then the
     round trip must return the input.  Then both at every cluster size
-    1-16 on Set-A rows, against the plain versions (tolerance: exact)."""
+    1-16 on Set-A rows, against the plain versions (tolerance: exact).
+    Then ``moddown_finish`` the same way: on 4 Set-C polynomials, and at
+    every cluster size on Set-A."""
     import numpy as np
     import torch
     from repro_torch.core.params import SET_A, SET_C, get_context
@@ -499,6 +699,44 @@ def phase_kernels_split(records, gen):
                                  f"differ from their plain versions")
     log(f"[kernels] Set-A logN 13, B=2 x 3 rows: ntt, intt and the round "
         f"trip equal to the plain versions at every cluster size 1-16")
+
+    # moddown_finish: 4 Set-C polynomials at level 31 (weight 0), tables
+    # from RnsTools on Set-C's context (no keygen); then every cluster size
+    # on Set-A's merged ModDown at level 4 through the C entry point
+    from repro_torch.core.rns import RnsTools
+    from repro_torch.kernels import basechange as bc
+    for params, sizes in ((SET_C, None), (SET_A, range(5))):
+        ctx = get_context(params, gen.device)
+        mt = bc.to_device(bc.build_moddown_tables(ctx, RnsTools(ctx),
+                                                  params.L), gen.device)
+        R, nd, N = mt["n_out"], len(mt["drop_idx"]), params.N
+        x = rand_residues((4, R, N), mt["q_out"], gen)
+        y = rand_residues((4, nd, N), mt["q_drop"], gen)
+        mtabs = (mt["w"], mt["d"], mt["inv_d"], mt["psi_out"], mt["p_inv"],
+                 mt["q_out"], mt["qneg_out"])
+        if sizes is None:
+            C = kntt.cluster_size(4 * R, N)
+            records["moddown_finish"].add(
+                f"Set-C logN 16 P=4 rows={R} nd={nd} C={C}",
+                lambda: bc.moddown_finish_cuda(x, y, *mtabs),
+                lambda: bc.moddown_finish_plain(x, y, *mtabs),
+                (2 * 4 * R * N + 4 * nd * N + R * N) * 4,
+                MONTMUL_OPS * 4 * R * (N * (nd + 2) + ntt_montmuls(N)),
+                plain_reps=1, weight=0)
+            continue
+        want = bc.moddown_finish_plain(x, y, *mtabs)
+        for logc in sizes:
+            out = torch.empty_like(x)
+            build.call("moddown_finish_launch", x, x.stride(0), y, out, 4, R,
+                       nd, params.logN, logc, *mtabs)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"moddown_finish with a cluster of "
+                                     f"{1 << logc} differs from its plain "
+                                     f"version")
+        log(f"[kernels] Set-A logN 13, P=4 x {R} rows, nd={nd}: "
+            f"moddown_finish equal to the plain version at every cluster "
+            f"size 1-16")
 
 
 def api_shapes(eng) -> dict:
@@ -835,15 +1073,24 @@ def counted_call(ctx, prog, ctA, ctB, batched: bool, l: int):
     from repro_torch.kernels import ops
     h0 = ctx.counters["hlt_launches"]
     ops.reset_launch_counts()
-    out, stages = staged_call(prog, ctA, ctB)
+    res = {}
+    paths = count_paths(lambda: res.update(zip(
+        ("out", "stages"), staged_call(prog, ctA, ctB))))
     launches = ops.launch_counts()
     hlts = ctx.counters["hlt_launches"] - h0
     want = expected_launches(batched, l)
+    what = "batched" if batched else "unbatched"
     if launches != want or hlts != (2 if batched else 2 + 2 * l):
-        raise AssertionError(f"{'batched' if batched else 'unbatched'} "
-                             f"hemm launched {launches}, {hlts} HLTs; "
+        raise AssertionError(f"{what} hemm launched {launches}, {hlts} HLTs; "
                              f"expected {want}")
-    return out, stages, launches
+    if paths[1] != 0 or paths[0] == 0:
+        raise AssertionError(f"{what} hemm: fused HLT (block, rotation) "
+                             f"pairs staged / gathered / identity {paths}: "
+                             f"a Galois rotation missed the staged tile")
+    log(f"[main] {what} counted call: fused HLT (block, rotation) pairs "
+        f"staged {paths[0]}, gathered from device memory {paths[1]}, "
+        f"identity {paths[2]}")
+    return res["out"], res["stages"], launches
 
 
 def fmt(stages) -> str:

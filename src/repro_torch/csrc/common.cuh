@@ -1,10 +1,18 @@
 // Shared device routines of the port's kernels: u32 Montgomery arithmetic
-// (R = 2^32) and a block-resident negacyclic NTT / iNTT in shared memory.
+// (R = 2^32), a block-resident negacyclic NTT / iNTT in shared memory
+// (intt_scale.cu, hoist.cu), and the split transforms that spread one row
+// over a thread-block cluster with their launcher (ntt.cu, moddown.cu).
 //
-// montmul mirrors repro/core/modmath.py montmul step for step; the TPU's
-// 16-bit mulhi32 emulation becomes the native __umulhi.  Inputs a, b < 2^30
-// (any residue times any residue < q·2^32) give the canonical result in
-// [0, q), equal to the reference's bit for bit.
+// montmul computes what repro/core/modmath.py montmul computes, a·b·2^-32
+// mod q as the canonical residue in [0, q), for any a·b < q·2^32 (residues
+// below 2^30: every modulus is a prime below 2^30).  It reduces the other
+// way round: with m = lo·q^-1 (q^-1 = −qneg mod 2^32) the low words of x
+// and m·q cancel, so (x − m·q)/2^32 = hi − umulhi(m, q) exactly, in
+// (−q, q), and one conditional add makes it canonical.  The reference adds
+// m·q with m = lo·(−q^-1) and subtracts q once; both end in the one
+// canonical residue, so the outputs are equal bit for bit.  Each
+// conditional add or subtract is an unsigned min (min(t, t − q) is t − q
+// exactly when t >= q), one add-and-min instruction on Hopper.
 //
 // block_ntt_fwd / block_intt mirror ntt_mont_raw / intt_mont_raw
 // (repro/core/ntt.py:84,102): Cooley–Tukey natural -> bit-reversed order,
@@ -15,6 +23,7 @@
 // The caller synchronises after filling the row; each stage ends with
 // __syncthreads(), so the row is complete when the routine returns.
 #pragma once
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -22,23 +31,20 @@ namespace fame {
 
 __device__ __forceinline__ uint32_t montmul(uint32_t a, uint32_t b, uint32_t q,
                                             uint32_t qneg) {
-  uint32_t lo = a * b;
-  uint32_t hi = __umulhi(a, b);
-  uint32_t m = lo * qneg;
-  uint32_t mq_hi = __umulhi(m, q);
-  // (x + m*q) / 2^32: the low words cancel exactly; carry = 1 iff lo != 0
-  uint32_t t = hi + mq_hi + (lo != 0u ? 1u : 0u);
-  return t >= q ? t - q : t;
+  const unsigned long long x = static_cast<unsigned long long>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(x) * (0u - qneg);   // x·q^-1
+  const uint32_t t = static_cast<uint32_t>(x >> 32) - __umulhi(m, q);
+  return min(t, t + q);                 // (−q, q) -> [0, q)
 }
 
 __device__ __forceinline__ uint32_t montadd(uint32_t a, uint32_t b, uint32_t q) {
-  uint32_t s = a + b;
-  return s >= q ? s - q : s;
+  const uint32_t s = a + b;
+  return min(s, s - q);
 }
 
 __device__ __forceinline__ uint32_t montsub(uint32_t a, uint32_t b, uint32_t q) {
-  uint32_t d = a + q - b;
-  return d >= q ? d - q : d;
+  const uint32_t d = a + q - b;
+  return min(d, d - q);
 }
 
 // HPS floor correction term y * inv_d, accumulated without FMA contraction
@@ -97,8 +103,8 @@ __device__ void block_intt(uint32_t* s, int logN,
 
 // ---------------------------------------------------------------------------
 // Split transforms: one row of N = 2^logN values over a thread-block
-// cluster of C = 2^c blocks (ntt.cu; meant for reuse by the other row
-// kernels).  Write a row index j = a·n + r with n = N/C the chunk length,
+// cluster of C = 2^c blocks (ntt.cu, and moddown.cu through
+// split_fwd_row and launch_split).  Write a row index j = a·n + r with n = N/C the chunk length,
 // a < C the chunk and r < n the offset in it.
 //
 // * Cross stages: the first c Cooley–Tukey stages (t = N/2 … n), or the
@@ -288,6 +294,44 @@ __device__ void split_local_inv(uint32_t* s, const uint32_t* tws, int ln,
   }
 }
 
+// One row's forward split transform on the calling block's cluster (grid
+// x = row << LOGC, so the cluster is one row; psi its twiddle row).  The
+// row's values come from load(r0, v): v[a] = value at a·n + r0 for a < C,
+// r0 in the block's r-range [k·R, (k+1)·R), so a caller can compute them
+// in registers (moddown.cu's BaseConv) instead of reading them.  After the
+// local stages, store(j, value) receives the transformed row at j = k·n +
+// i, i < n: chunk k, k the block's rank.
+template <int LOGC, typename Load, typename Store>
+__device__ __forceinline__ void split_fwd_row(uint32_t* s, int logN,
+                                              const uint32_t* __restrict__ psi,
+                                              uint32_t q, uint32_t qn, Load load,
+                                              Store store) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.block_rank());
+  const int ln = logN - LOGC, n = 1 << ln, R = n >> LOGC;
+
+  // every block of the cluster must be running before its shared memory
+  // is written: arrive, copy the chunk's twiddles, wait
+  cluster_arrive_relaxed();
+  uint32_t* tws = s + n + (n >> 5);
+  split_load_twiddles(tws, n, LOGC, k, psi);
+  cluster_wait();
+  for (int u = threadIdx.x; u < R; u += blockDim.x) {
+    uint32_t v[1 << LOGC];
+    load(k * R + u, v);
+    split_cross_fwd<LOGC>(v, psi, q, qn);
+#pragma unroll
+    for (int a = 0; a < (1 << LOGC); ++a)
+      cluster.map_shared_rank(s, a)[split_pad(k * R + u)] = v[a];
+  }
+  cluster.sync();                       // chunk k is complete in block k
+
+  split_local_fwd(s, tws, ln, q, qn);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    store((k << ln) + i, s[split_pad(i)]);
+}
+
 // Threads per block of a split transform of chunk length n: one thread per
 // 8-value unit (the inverse holds its last pass in registers across the
 // exchange), at least one warp.
@@ -296,6 +340,50 @@ inline int split_threads(int n) { return n >= 256 ? n / 8 : 32; }
 // The padded chunk, then its twiddle table.
 inline size_t split_smem_bytes(int n) {
   return sizeof(uint32_t) * static_cast<size_t>(2 * n + (n >> 5));
+}
+
+// A cluster of 2^logc blocks (at most 16) over chunks of n = 2^(logN -
+// logc) values: at least 8 values a chunk (the last pass), at least one r
+// a block in the cross stages (n >= C), at most n/8 = 1024 threads.
+inline bool split_shape_ok(int logN, int logc) {
+  const int ln = logN - logc;
+  return logc >= 0 && logc <= 4 && ln >= 3 && ln >= logc && ln <= 13;
+}
+
+// Launch a split kernel over B × M rows of 2^logN: grid (M << logc, B),
+// one cluster of 2^logc blocks a row, the rows of one batch element
+// adjacent; 16 blocks opt into the non-portable cluster size, and a chunk
+// above 48 KB into more dynamic shared memory.  Returns the launch error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_split(Kernel kernel, int logc, int B, int M, int logN,
+                         cudaStream_t stream, Args... args) {
+  const int n = 1 << (logN - logc);
+  const size_t smem = split_smem_bytes(n);
+  if (logc > 3) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  if (smem > 48 * 1024) {               // n = 8192: a 2^16 row over 8 blocks
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << logc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(M) << logc, B);
+  cfg.blockDim = dim3(split_threads(n));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // Threads per block for a block-resident row of 2^logN values.

@@ -17,7 +17,8 @@
 //
 // Design: one (batch, limb) row per thread-block cluster of C = 2^c blocks
 // (C from the row count and N, kernels/ntt.py cluster_size; 1-16), the
-// split transform of common.cuh.  Forward: block k loads the C segments
+// split transform of common.cuh (the forward one is split_fwd_row, which
+// moddown.cu shares, and both launch through launch_split).  Forward: block k loads the C segments
 // x[a·n + k·R + (0 … R)] (n = N/C, R = n/C; coalesced), runs the c cross
 // stages in registers, and stores each value into the shared memory of
 // the block that owns its chunk (distributed shared memory); after a
@@ -49,38 +50,21 @@ __global__ void __launch_bounds__(1024)
                   const uint32_t* __restrict__ psi,
                   const uint32_t* __restrict__ q32,
                   const uint32_t* __restrict__ qneg) {
-  constexpr int C = 1 << LOGC;
   extern __shared__ uint32_t s[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int k = static_cast<int>(cluster.block_rank());
   const int m = blockIdx.x >> LOGC;
   const long long b = blockIdx.y;
-  const int ln = logN - LOGC, n = 1 << ln, R = n >> LOGC;
+  const int n = 1 << (logN - LOGC);
   const long long row = static_cast<long long>(m) << logN;
-  const uint32_t* xr = x + b * x_bstride + row + k * R;
-  const uint32_t* tw = psi + row;
+  const uint32_t* xr = x + b * x_bstride + row;
+  uint32_t* o = out + (b * M + m) * (1LL << logN);
   const uint32_t q = q32[m], qn = qneg[m];
-
-  // every block of the cluster must be running before its shared memory
-  // is written: arrive, copy the chunk's twiddles, wait
-  fame::cluster_arrive_relaxed();
-  uint32_t* tws = s + n + (n >> 5);
-  fame::split_load_twiddles(tws, n, LOGC, k, tw);
-  fame::cluster_wait();
-  for (int u = threadIdx.x; u < R; u += blockDim.x) {
-    uint32_t v[C];
+  fame::split_fwd_row<LOGC>(
+      s, logN, psi + row, q, qn,
+      [&](int r0, uint32_t* v) {
 #pragma unroll
-    for (int a = 0; a < C; ++a) v[a] = xr[a * n + u];
-    fame::split_cross_fwd<LOGC>(v, tw, q, qn);
-#pragma unroll
-    for (int a = 0; a < C; ++a)
-      cluster.map_shared_rank(s, a)[fame::split_pad(k * R + u)] = v[a];
-  }
-  cluster.sync();                     // chunk k is complete in block k
-
-  fame::split_local_fwd(s, tws, ln, q, qn);
-  uint32_t* o = out + (b * M + m) * (1LL << logN) + (static_cast<long long>(k) << ln);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = s[fame::split_pad(i)];
+        for (int a = 0; a < (1 << LOGC); ++a) v[a] = xr[a * n + r0];
+      },
+      [&](int j, uint32_t val) { o[j] = val; });
 }
 
 template <int LOGC>
@@ -139,46 +123,6 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch_split(Kernel kernel, int logc, int B, int M, int logN,
-                         cudaStream_t stream, Args... args) {
-  const int n = 1 << (logN - logc);
-  const size_t smem = fame::split_smem_bytes(n);
-  if (logc > 3) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  if (smem > 48 * 1024) {             // n = 8192: a 2^16 row over 8 blocks
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1u << logc;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(M) << logc, B);
-  cfg.blockDim = dim3(fame::split_threads(n));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// A cluster of 2^logc blocks (at most 16) over chunks of n = 2^(logN -
-// logc) values: at least 8 values a chunk (the last pass), at least one r
-// a block in the cross stages (n >= C), at most n/8 = 1024 threads.
-bool split_shape_ok(int logN, int logc) {
-  const int ln = logN - logc;
-  return logc >= 0 && logc <= 4 && ln >= 3 && ln >= logc && ln <= 13;
-}
-
 }  // namespace
 
 // the kernels by log2 of the cluster size
@@ -193,8 +137,9 @@ extern "C" int ntt_launch(const uint32_t* x, long long x_bstride,
                           uint32_t* out, int B, int M, int logN, int logc,
                           const uint32_t* psi, const uint32_t* q32,
                           const uint32_t* qneg, void* stream) {
-  if (!split_shape_ok(logN, logc)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_split(
+  if (!fame::split_shape_ok(logN, logc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fame::launch_split(
       kFwd[logc], logc, B, M, logN, static_cast<cudaStream_t>(stream), x,
       x_bstride, out, M, logN, psi, q32, qneg));
 }
@@ -204,8 +149,9 @@ extern "C" int intt_launch(const uint32_t* x, long long x_bstride,
                            const uint32_t* psii, const uint32_t* ninv,
                            const uint32_t* q32, const uint32_t* qneg,
                            void* stream) {
-  if (!split_shape_ok(logN, logc)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_split(
+  if (!fame::split_shape_ok(logN, logc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fame::launch_split(
       kInv[logc], logc, B, M, logN, static_cast<cudaStream_t>(stream), x,
       x_bstride, out, M, logN, psii, ninv, q32, qneg));
 }

@@ -19,7 +19,11 @@ on-card reference) and a CUDA kernel wrapper (``csrc/intt_scale.cu``,
   in place: digit j's rows are c1 rows j·α.., and the TPU's zero-padded
   operand layout is not rebuilt.
 * ``moddown_finish`` — BaseConv from the nd drop-basis rows → NTT →
-  (x − conv)·P⁻¹, over a leading batch of polynomials in one launch.
+  (x − conv)·P⁻¹, over a leading batch of polynomials in one launch.  Its
+  kernel splits each (polynomial, target row) over a thread-block cluster
+  of ``kernels/ntt.py`` ``cluster_size`` blocks, as ``ntt`` does a row,
+  and computes the BaseConv into the NTT's cross stages, in the order of
+  :func:`moddown_finish_split_plain` (tests only).
 
 The BaseConv floor correction is ``floor(Σ y_i·inv_d_i + 0.5e-6)`` in
 float64 everywhere: the reference is bit-exact in f64 (its CPU backend),
@@ -42,6 +46,9 @@ CORRECTION_EPS = 0.5e-6
 #: largest ring the block-resident NTT holds: one u32 row of 2^15 is
 #: 128 KiB of shared memory; 2^16 (256 KiB) exceeds a Hopper block's 227 KB
 MAX_LOGN = 15
+#: largest ring of the kernels that split a row over a cluster (ntt, intt,
+#: moddown_finish): a 2^16 row over 8 blocks is 32 KiB a block
+SPLIT_MAX_LOGN = 16
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +123,16 @@ def hoist_db_plain(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
 _PLAIN_MODDOWN_POLYS = 16
 
 
+def _moddown_conv(y, w, d, inv_d, q32, qneg):
+    """y: (c, nd, K) drop-basis coefficients at any K positions.  Returns
+    the (c, R, K) BaseConv onto the R target rows, coefficient-domain."""
+    v = _floor_count(y, inv_d)                                    # (c, K)
+    prod = mm.montmul(y[:, None], w[None, :, :, None], q32[..., None],
+                      qneg[..., None])                            # (c, R, nd, K)
+    acc = mm.montsum(prod, q32, axis=2)
+    return mm.montsub(acc, mm.montmul(v[:, None], d, q32, qneg), q32)
+
+
 def moddown_finish_plain(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
     """x: (P, R, N) eval-domain target rows; y_drop: (P, nd, N) scaled
     drop-basis coefficients; w: (R, nd); d/p_inv_m/q32/qneg: (R, 1);
@@ -123,16 +140,35 @@ def moddown_finish_plain(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
     out = []
     chunk = _PLAIN_MODDOWN_POLYS
     for s in range(0, x.shape[0], chunk):
-        y = y_drop[s:s + chunk]
-        v = _floor_count(y, inv_d)                                # (c, N)
-        prod = mm.montmul(y[:, None], w[None, :, :, None], q32[..., None],
-                          qneg[..., None])                        # (c, R, nd, N)
-        acc = mm.montsum(prod, q32, axis=2)
-        conv = mm.montsub(acc, mm.montmul(v[:, None], d, q32, qneg), q32)
+        conv = _moddown_conv(y_drop[s:s + chunk], w, d, inv_d, q32, qneg)
         conv_eval = core_ntt.ntt_mont_raw(conv, psi_m, q32, qneg)
         diff = mm.montsub(x[s:s + chunk], conv_eval, q32)
         out.append(mm.montmul(diff, p_inv_m, q32, qneg))
     return torch.cat(out)
+
+
+def moddown_finish_split_plain(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32,
+                               qneg, C: int):
+    """``moddown_finish`` in the order of its kernel over a cluster of C
+    blocks (tests only): block k of a row's cluster computes the BaseConv
+    at j = a·n + k·R' + u (a < C, u < R' = n/C, n = N/C), the row goes
+    through ``ntt_split_plain``'s cross stages, exchange and local stages,
+    and the epilogue (x − conv)·P⁻¹ runs on each chunk."""
+    from repro_torch.kernels import ntt as kntt
+    P, R, N = x.shape
+    nd = y_drop.shape[1]
+    kntt._split_dims(N, C)
+    r_blk = N // C // C
+    yv = y_drop.reshape(P, nd, C, C, r_blk)                       # [a, k, u]
+    conv = torch.empty((P, R, C, C, r_blk), dtype=torch.int32,
+                       device=x.device)
+    for k in range(C):                        # block k's slice, every a
+        ys = yv[:, :, :, k].reshape(P, nd, C * r_blk)
+        conv[:, :, :, k] = _moddown_conv(ys, w, d, inv_d, q32, qneg
+                                         ).reshape(P, R, C, r_blk)
+    conv_eval = kntt.ntt_split_plain(conv.reshape(P, R, N), psi_m, q32, qneg,
+                                     C)
+    return mm.montmul(mm.montsub(x, conv_eval, q32), p_inv_m, q32, qneg)
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +187,10 @@ def _logn(N: int, max_logn: int = MAX_LOGN) -> int:
     if logN > max_logn:
         raise ValueError(
             f"N = 2^{logN}: one u32 row is {4 * N // 1024} KiB; this kernel "
-            f"supports N <= 2^{max_logn} (the block-resident kernels hold a "
-            f"row in one block's shared memory, at most 2^{MAX_LOGN}; only "
-            f"ntt / intt split a row over a cluster)")
+            f"supports N <= 2^{max_logn} (intt_scale, hoist_db and "
+            f"baseconv_ntt hold a row in one block's shared memory, at most "
+            f"2^{MAX_LOGN}; ntt, intt and moddown_finish split a row over a "
+            f"cluster, up to 2^{SPLIT_MAX_LOGN})")
     return logN
 
 
@@ -239,7 +276,7 @@ def moddown_finish_cuda(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
     (P, nd, N) contiguous."""
     P, R, N = x.shape
     nd = y_drop.shape[1]
-    logN = _logn(N)
+    logN = _logn(N, SPLIT_MAX_LOGN)
     build.check("moddown_finish", x, torch.int32, rows_contiguous=True)
     build.check("moddown_finish", y_drop, torch.int32)
     if y_drop.shape != (P, nd, N):
@@ -250,9 +287,13 @@ def moddown_finish_cuda(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
                        (qneg, (R, 1)))
     build.check_tables("moddown_finish", x.device, (inv_d, (nd, 1)),
                        dtype=torch.float64)
+    # the cluster that ntt would give as many rows: C = 8 at the Set-B
+    # shapes, the fastest of 4, 8 and 16 there (PERF.md §6)
+    from repro_torch.kernels import ntt as kntt
+    logc = kntt.cluster_size(P * R, N).bit_length() - 1
     out = torch.empty((P, R, N), dtype=torch.int32, device=x.device)
     build.call("moddown_finish_launch", x, x.stride(0), y_drop, out, P, R, nd,
-               logN, w, d, inv_d, psi_m, p_inv_m, q32, qneg)
+               logN, logc, w, d, inv_d, psi_m, p_inv_m, q32, qneg)
     LAUNCHES["moddown_finish"] += 1
     return out
 

@@ -38,19 +38,21 @@ SIGNATURES = {
                             [P, P, LL, P, I, I, I, I, I, I, P, P, P, P, P, P,
                              P]),
     "moddown_finish_launch": ("moddown",
-                              [P, LL, P, P, I, I, I, I, P, P, P, P, P, P, P]),
+                              [P, LL, P, P, I, I, I, I, I, P, P, P, P, P, P,
+                               P]),
     "fused_hlt_indexed_launch": ("fused_hlt",
                                  [P, P, P, P, P, P, P, P, P, P, P, P, P,
-                                  I, I, I, I, I]),
+                                  I, I, I, I, I, I, P]),
     "fused_hlt_launch": ("fused_hlt",
-                         [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I]),
+                         [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                          P]),
     "baseconv_ntt_launch": ("hoist",
                             [P, P, P, I, I, I, I, P, P, P, P, P, P, P]),
     "ntt_launch": ("ntt", [P, LL, P, I, I, I, I, P, P, P]),
     "intt_launch": ("ntt", [P, LL, P, I, I, I, I, P, P, P, P]),
     "fused_hlt_batched_launch": ("fused_hlt",
                                  [P, P, P, P, P, P, P, P, P, P, P,
-                                  I, I, I, I, I]),
+                                  I, I, I, I, I, I, P]),
     "baseconv_launch": ("baseconv", [P, P, P, P, P, P, P, P, P, P, I, I, I]),
     "modmul_launch": ("modmul", [P, P, P, P, P, I, I]),
     "modadd_launch": ("modmul", [P, P, P, P, I, I]),
@@ -120,6 +122,8 @@ def load() -> dict:
 def _arg(a):
     if isinstance(a, torch.Tensor):
         return a.data_ptr()
+    if a is None:                       # a null pointer
+        return None
     return int(a)
 
 

@@ -24,13 +24,12 @@ import torch
 from repro_torch.core import modmath as mm
 from repro_torch.core import ntt as core_ntt
 from repro_torch.kernels import build
+from repro_torch.kernels.basechange import SPLIT_MAX_LOGN as MAX_LOGN
 from repro_torch.kernels.basechange import _logn
 
 #: launches per kernel, counted by the wrapper right where it launches
 LAUNCHES = {"ntt": 0, "intt": 0}
 
-#: largest ring: a 2^16 row over a cluster of 8 is 32 KiB a block
-MAX_LOGN = 16
 #: streaming multiprocessors of an H100 SXM
 SMS = 132
 #: shortest chunk a block of a cluster > 1 transforms
@@ -51,7 +50,8 @@ def cluster_size(rows: int, N: int) -> int:
     """Blocks C of the cluster that transforms one row of a launch over
     ``rows`` (batch × limb) rows: chunks N/C of at least ``MIN_CHUNK``
     values (C = 1 below 2^11), 16 while one cluster a row fits the card's
-    SMs, else 8 (the portable cluster size)."""
+    SMs, else 8 (the portable cluster size).  ``moddown_finish`` spreads
+    its (polynomial, target row) rows the same way."""
     cmax = min(16, max(1, N // MIN_CHUNK))
     if cmax == 16 and rows * 16 <= SMS:
         return 16
