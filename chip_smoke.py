@@ -24,13 +24,19 @@ Phases, each printing its lines before the last:
    kernels also run on random permutations (the device-memory gather,
    weight 0) beside the Galois tables (the staged source tile), with the
    (block, rotation) pairs of each path counted on the card and held
-   against ``tile_sources``; ``moddown_finish`` also at the unbatched
-   shape (2 polynomials, weight 0: 258 launches of the unbatched hemm),
-   on 4 Set-C polynomials (logN 16, weight 0) and at every cluster size
-   1-16 on Set-A rows; then the cluster sizes 4, 8, 16 of ``moddown_finish``
-   and the limb groups 1, 2, 4, 8 of ``fused_hlt_indexed`` at the Set-B
-   Step-1 and Step-2 shapes, each checked and timed, and the Step-2
-   ``moddown_finish`` with one drop row and ``ntt`` alone over its rows;
+   against ``tile_sources``; ``intt_scale`` reads the merged ModDown's
+   drop rows through its row table, and the Step-2 merged ModDown is timed
+   against the gather it replaced; ``moddown_finish`` also at the
+   unbatched shape (2 polynomials, weight 0: 258 launches of the unbatched
+   hemm); ``ntt``/``intt``, ``moddown_finish``, ``intt_scale``,
+   ``hoist_db`` and ``baseconv_ntt`` on Set-C rows (logN 16, weight 0)
+   and at every cluster size 1-16 on Set-A rows; then the cluster sizes
+   4, 8, 16 of ``moddown_finish`` and ``intt_scale`` at the Set-B Step-1,
+   Step-2 and unbatched shapes (with ``intt`` alone over the same rows),
+   of the hoist's BaseConv + NTT at Step 1 and the Step-2 hoist, and the
+   limb groups 1, 2, 4, 8 of ``fused_hlt_indexed`` at Step 1 and Step 2,
+   each checked and timed, and the Step-2 ``moddown_finish`` with one drop
+   row and ``ntt`` alone over its rows;
    then the kernel API (``repro_torch.kernels.ops``, the path of
    ``modmul``, ``modadd``, ``baseconv`` and ``fused_hlt_batched``, as the
    reference's benchmarks call it): one counted run at those shapes, every
@@ -65,6 +71,14 @@ Phases, each printing its lines before the last:
    the batched ``pallas`` hemm, and with the reference's own chain
    epsilon its differing residues counted and its decrypted output within
    0.05 of the ``pallas`` hemm's; stage times printed for each;
+3c. set-c — Set-C (logN 16, L 31, k 12, β 3, unreduced), ``plan_hemm(32,
+   32, 32)`` on ``CkksEngine(SET_C, datapath="pallas")``: keygen, the
+   batched counted call (launches as ``expected_launches``, the gather
+   paths as ``tile_sources`` predicts) and a timed call, the four-sign
+   check, the unbatched program array-equal to the batched one, and the
+   Step-1 σ HLT on ``mo`` with the engine and context on ``"xla"`` and the
+   fused epsilon (no kernel launch) array-equal to the ``pallas`` one; the
+   raw error, peak device memory and stage times printed;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
@@ -78,6 +92,7 @@ imports nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import pathlib
 import subprocess
@@ -293,7 +308,7 @@ def phase_kernels(eng, records, l: int):
         # digit, the (M - na) generated limbs' BaseConv + NTT
         na = [min(alpha, nq - j * alpha) for j in range(nbeta)]
         hb = (2 * nq * N + nq * N + M * N + 2 * nbeta * M * N) * 4
-        ho = MONTMUL_OPS * 2 * (nq * (ntt_montmuls(N) + 2 * N)
+        ho = MONTMUL_OPS * 2 * (nq * (ntt_montmuls(N) + N)
                                 + sum((M - a) * (N * a + N + ntt_montmuls(N))
                                       for a in na))
         records["hoist_db"].add(
@@ -321,20 +336,23 @@ def phase_kernels(eng, records, l: int):
                               for a in na), weight=2)
         del y, pt, btabs
 
-        # -- merged ModDown: intt_scale + moddown_finish over 2·B polys ----
+        # -- merged ModDown: intt_scale + moddown_finish over 2·B polys;
+        #    intt_scale reads the drop rows of x_full through its row table
         mt = eng.fused_moddown_tables(level)
         P = 2 * B
         x_full = rand_residues((P, M, N), q_ext, gen)
-        x_drop = x_full[:, mt["drop_idx"]]
+        drop = mt["drop_idx"]
+        x_drop = x_full[:, drop]
         nd, R_out = x_drop.shape[1], mt["n_out"]
         itabs = (mt["psii_drop"], mt["ninv_drop"], mt["hat_drop"],
                  mt["q_drop"], mt["qneg_drop"])
+        C = kntt.cluster_size(P * nd, N)
         records["intt_scale"].add(
-            f"step{step} P={P} rows={nd}",
-            lambda: bc.intt_scale_cuda(x_drop, *itabs),
-            lambda: bc.intt_scale_plain(x_drop, *itabs),
+            f"step{step} P={P} rows={nd} C={C} (row table)",
+            lambda: bc.intt_scale_rows_cuda(x_full, drop, *itabs),
+            lambda: bc.intt_scale_plain(x_full[:, drop], *itabs),
             (2 * P * nd * N + nd * N) * 4,
-            MONTMUL_OPS * P * nd * (ntt_montmuls(N) + 2 * N))
+            MONTMUL_OPS * P * nd * (ntt_montmuls(N) + N))
         y = bc.intt_scale_cuda(x_drop, *itabs)
         x_out = x_full[:, :R_out]
         mtabs = (mt["w"], mt["d"], mt["inv_d"], mt["psi_out"], mt["p_inv"],
@@ -350,6 +368,8 @@ def phase_kernels(eng, records, l: int):
                 (2 * P_ * R_out * N + P_ * nd * N + R_out * N) * 4,
                 MONTMUL_OPS * P_ * R_out * (N * (nd + 2) + ntt_montmuls(N)),
                 weight=w_)
+        if step == 2:
+            moddown_gather(x_full, mt, itabs, mtabs)
         del x_full, x_drop, y, x_out
 
         # -- fused_hlt_indexed -------------------------------------------
@@ -537,6 +557,31 @@ def check_paths(label, fn, perms, is_id, diag_slots, M, N, staged_only):
         f"tile_sources predicts)")
 
 
+def moddown_gather(x_full, mt, itabs, mtabs):
+    """The Step-2 merged ModDown (``ops.moddown_fused``: ``intt_scale``
+    reading the drop rows in place through its row table, then
+    ``moddown_finish``) against the same two launches after the gather
+    ``x_full[:, drop_idx]`` that it replaced: equal outputs, device ms of
+    both."""
+    import torch
+    from repro_torch.kernels import basechange as bc, ops
+
+    def gather():
+        y = bc.intt_scale_cuda(x_full[:, mt["drop_idx"]], *itabs)
+        return bc.moddown_finish_cuda(x_full[:, :mt["n_out"]], y, *mtabs)
+
+    def rows():
+        return ops.moddown_fused(x_full, mt)
+    if not torch.equal(rows(), gather()):
+        raise AssertionError("moddown_fused with the row table differs from "
+                             "the gathered form")
+    P, M, N = x_full.shape
+    log(f"[kernels] merged ModDown step 2 P={P} M={M}: with the row table "
+        f"{device_ms(rows, cuda_ms(rows, 3)):.4f} ms on the device, after the "
+        f"gather of {P} x {len(mt['drop_idx'])} rows "
+        f"{device_ms(gather, cuda_ms(gather, 3)):.4f} ms (equal outputs)")
+
+
 def moddown_parts(x, y, mtabs, logN: int):
     """What the Step-2 ``moddown_finish`` launch is made of, at C = 8: the
     same launch with one drop row (a BaseConv from nd = 1, held against
@@ -570,13 +615,99 @@ def moddown_parts(x, y, mtabs, logN: int):
         f"(both equal to plain)")
 
 
+def sweep_intt_scale(eng, gen, step, level: int, P: int):
+    """``intt_scale`` of a merged ModDown's drop rows (P polynomials, read
+    through the row table) over clusters of 4, 8 and 16, each equal to the
+    plain version, device ms printed; and ``intt`` alone over as many rows
+    at the wrapper's C (the split inverse without the row table and the
+    scale)."""
+    import torch
+    from repro_torch.kernels import basechange as bc, build, ntt as kntt
+    p = eng.params
+    N = p.N
+    mt = eng.fused_moddown_tables(level)
+    full = eng.tools.digit_bases(level)[0][2]
+    x_full = rand_residues((P, len(full), N), eng.basis(full).moduli_u32, gen)
+    drop, nd = mt["drop_idx"], len(mt["drop_idx"])
+    itabs = (mt["psii_drop"], mt["ninv_drop"], mt["hat_drop"], mt["q_drop"],
+             mt["qneg_drop"])
+    want = bc.intt_scale_plain(x_full[:, drop], *itabs)
+    fold = bc._fold(*itabs[1:])
+    times = []
+    for logc in (2, 3, 4):
+        def run(logc=logc):
+            out = torch.empty((P, nd, N), dtype=torch.int32, device=x_full.device)
+            build.call("intt_scale_launch", x_full, x_full.stride(0), drop,
+                       out, P, nd, p.logN, logc, itabs[0], fold, itabs[3],
+                       itabs[4])
+            return out
+        if not torch.equal(run(), want):
+            raise AssertionError(f"intt_scale step {step} C={1 << logc} "
+                                 f"differs from plain")
+        times.append(f"C={1 << logc} {device_ms(run, cuda_ms(run, 3)):.4f}")
+    C = kntt.cluster_size(P * nd, N)
+    x_drop = x_full[:, drop]
+    tabs = (itabs[0], itabs[1], itabs[3], itabs[4])
+
+    def intt():
+        return kntt.intt_cuda(x_drop, *tabs)
+    if not torch.equal(intt(), kntt.intt_plain(x_drop, *tabs)):
+        raise AssertionError(f"intt over the step {step} drop rows differs "
+                             f"from plain")
+    log(f"[kernels] intt_scale step {step} P={P} rows={nd} ({P * nd} rows): "
+        f"equal to plain at every cluster size; device ms {', '.join(times)} "
+        f"(wrapper: C={C}); intt alone over the gathered rows at C={C} "
+        f"{device_ms(intt, cuda_ms(intt, 3)):.4f}")
+    del x_full, x_drop, want
+
+
+def sweep_hoist(eng, gen, step, level: int):
+    """The hoist's BaseConv + NTT launch (``hoist_bc_ntt_launch``) of 2
+    ciphertexts over clusters of 4, 8 and 16, each equal to the plain
+    version, device ms printed."""
+    import torch
+    from repro_torch.kernels import basechange as bc, build, ntt as kntt
+    p = eng.params
+    N = p.N
+    t = eng.fused_hoist_tables(level)
+    nq, nbeta, alpha = t["nq"], t["nbeta"], t["alpha"]
+    M = t["psi_full"].shape[0]
+    c1s = rand_residues((2, nq, N), t["q_full"][:nq], gen)
+    tabs = [t[k] for k in HOIST_KEYS]
+    kw = dict(nbeta=nbeta, alpha=alpha)
+    want = bc.hoist_db_plain(c1s, *tabs, **kw)
+    y = bc.intt_scale_cuda(c1s, *(a[:nq] for a in tabs[:5]))
+    times = []
+    for logc in (2, 3, 4):
+        def run(logc=logc):
+            out = torch.empty((2, nbeta, M, N), dtype=torch.int32,
+                              device=c1s.device)
+            build.call("hoist_bc_ntt_launch", y, c1s, c1s.stride(0), out, 2,
+                       nbeta, alpha, nq, M, p.logN, logc, *tabs[5:])
+            return out
+        if not torch.equal(run(), want):
+            raise AssertionError(f"hoist_db step {step} C={1 << logc} differs "
+                                 f"from plain")
+        times.append(f"C={1 << logc} {device_ms(run, cuda_ms(run, 3)):.4f}")
+    log(f"[kernels] hoist_db BaseConv+NTT launch step {step} B=2 nbeta={nbeta}"
+        f" M={M} ({2 * nbeta * M} rows): equal to plain at every cluster "
+        f"size; device ms {', '.join(times)} (wrapper: "
+        f"C={kntt.cluster_size(2 * nbeta * M, N)})")
+
+
+HOIST_KEYS = ("psii_pad", "ninv_pad", "hat_pad", "q_pad", "qneg_pad", "w",
+              "d", "inv_d", "psi_full", "q_full", "qneg_full", "mask")
+
+
 def phase_kernels_shapes(eng, gen, l: int):
     """The launch shapes the wrappers choose between, through the C entry
     points at the Set-B hemm's shapes, each output held equal to the plain
-    version and its device time printed: ``moddown_finish`` over clusters
-    of 4, 8 and 16 at Step 1 (4 polynomials), Step 2 (2·2·l) and the
-    unbatched shape (2); ``fused_hlt_indexed`` with limb groups of 1, 2, 4
-    and 8 at Step 1 and Step 2 on the Galois tables."""
+    version and its device time printed: ``moddown_finish`` and
+    ``intt_scale`` over clusters of 4, 8 and 16 at Step 1 (4 polynomials),
+    Step 2 (2·2·l) and the unbatched shape (2); the hoist's BaseConv + NTT
+    the same way at Step 1 and at the Step-2 hoist; ``fused_hlt_indexed``
+    with limb groups of 1, 2, 4 and 8 at Step 1 and Step 2 on the Galois
+    tables."""
     import torch
     from repro_torch.kernels import basechange as bc, build, fused_hlt as fh
     from repro_torch.kernels import ntt as kntt
@@ -609,6 +740,9 @@ def phase_kernels_shapes(eng, gen, l: int):
         if step == 2:
             moddown_parts(x, y, mtabs, p.logN)
         del x, y, want
+        sweep_intt_scale(eng, gen, step, level, P)
+    for step, level in ((1, p.L), ("2 hoist", p.L - 1)):
+        sweep_hoist(eng, gen, step, level)
     for step, level, B in ((1, p.L, 2), (2, p.L - 1, 2 * l)):
         full = eng.tools.digit_bases(level)[0][2]
         view = eng.basis(full)
@@ -647,7 +781,7 @@ def phase_kernels_shapes(eng, gen, l: int):
 
 def phase_kernels_split(records, gen):
     """``ntt`` then ``intt`` on 4 rows of Set-C's moduli at logN 16 (a
-    row the block-resident kernels cannot hold): each against its plain
+    row of 256 KiB, more than one block's shared memory): each against its plain
     version (weight 0: checked and timed, no launch of the hemm), then the
     round trip must return the input.  Then both at every cluster size
     1-16 on Set-A rows, against the plain versions (tolerance: exact).
@@ -737,6 +871,106 @@ def phase_kernels_split(records, gen):
         log(f"[kernels] Set-A logN 13, P=4 x {R} rows, nd={nd}: "
             f"moddown_finish equal to the plain version at every cluster "
             f"size 1-16")
+    phase_kernels_hoist_split(records, gen)
+
+
+def phase_kernels_hoist_split(records, gen):
+    """``intt_scale``, ``hoist_db`` and ``baseconv_ntt`` at logN 16: on 4
+    Set-C rows (the merged ModDown's first 4 drop rows at level 31, read
+    through the row table) and on one Set-C ciphertext at level 31 (β 3,
+    α 11, M 44), each against its plain version (weight 0).  Then each at
+    every cluster size 1-16 on Set-A (logN 13) through the C entry points,
+    at levels 4 and 3 (tolerance: exact)."""
+    import torch
+    from repro_torch.core.params import SET_A, SET_C, get_context
+    from repro_torch.core.rns import RnsTools
+    from repro_torch.kernels import basechange as bc, build, ntt as kntt
+
+    for params in (SET_C, SET_A):
+        ctx = get_context(params, gen.device)
+        tools = RnsTools(ctx)
+        N, logN = params.N, params.logN
+        levels = (params.L,) if params is SET_C else (params.L, params.L - 1)
+        for level in levels:
+            t = bc.to_device(bc.build_hoist_tables(ctx, tools, level),
+                             gen.device)
+            mt = bc.to_device(bc.build_moddown_tables(ctx, tools, level),
+                              gen.device)
+            nq, nbeta, alpha = t["nq"], t["nbeta"], t["alpha"]
+            M = t["psi_full"].shape[0]
+            tabs = [t[k] for k in HOIST_KEYS]
+            kw = dict(nbeta=nbeta, alpha=alpha)
+            c1s = rand_residues((1, nq, N), t["q_full"][:nq], gen)
+            x_full = rand_residues((1, M, N), t["q_full"], gen)
+            y = rand_residues((nbeta * alpha, N), t["q_pad"], gen)
+            y[nq:] = 0
+            pt = rand_residues((M, N), t["q_full"], gen)
+            btabs = (y, *tabs[5:11], pt, t["mask"])
+            if params is SET_C:
+                rows = mt["drop_idx"][:4].contiguous()
+                itabs = tuple(mt[k][:4].contiguous() for k in (
+                    "psii_drop", "ninv_drop", "hat_drop", "q_drop",
+                    "qneg_drop"))
+                C = kntt.cluster_size(4, N)
+                records["intt_scale"].add(
+                    f"Set-C logN 16 rows=4 C={C} (row table)",
+                    lambda: bc.intt_scale_rows_cuda(x_full, rows, *itabs),
+                    lambda: bc.intt_scale_plain(x_full[:, rows], *itabs),
+                    (2 * 4 * N + 4 * N) * 4,
+                    MONTMUL_OPS * 4 * (ntt_montmuls(N) + N), weight=0)
+                na = [min(alpha, nq - j * alpha) for j in range(nbeta)]
+                conv = sum((M - a) * (N * a + N + ntt_montmuls(N)) for a in na)
+                records["hoist_db"].add(
+                    f"Set-C logN 16 B=1 nq={nq} M={M} C="
+                    f"{kntt.cluster_size(nbeta * M, N)}",
+                    lambda: bc.hoist_db_cuda(c1s, *tabs, **kw),
+                    lambda: bc.hoist_db_plain(c1s, *tabs, **kw),
+                    (nq * N + nq * N + M * N + nbeta * M * N) * 4,
+                    MONTMUL_OPS * (nq * (ntt_montmuls(N) + N) + conv),
+                    weight=0)
+                records["baseconv_ntt"].add(
+                    f"Set-C logN 16 nbeta={nbeta} alpha={alpha} M={M} C="
+                    f"{kntt.cluster_size(nbeta * M, N)}",
+                    lambda: bc.baseconv_ntt_cuda(*btabs),
+                    lambda: bc.baseconv_ntt_plain(*btabs),
+                    (2 * nq * N + M * N + nbeta * M * N) * 4,
+                    MONTMUL_OPS * conv, weight=0)
+                del c1s, x_full, y, pt, btabs
+                continue
+            drop, nd = mt["drop_idx"], len(mt["drop_idx"])
+            itabs = [mt[k] for k in ("psii_drop", "ninv_drop", "hat_drop",
+                                     "q_drop", "qneg_drop")]
+            want_i = bc.intt_scale_plain(x_full[:, drop], *itabs)
+            want_h = bc.hoist_db_plain(c1s, *tabs, **kw)
+            want_b = bc.baseconv_ntt_plain(*btabs)
+            fold_i = bc._fold(*itabs[1:])
+            fold_h = bc._fold(*tabs[1:5])
+            for logc in range(5):
+                out_i = torch.empty((1, nd, N), dtype=torch.int32,
+                                    device=gen.device)
+                build.call("intt_scale_launch", x_full, x_full.stride(0), drop,
+                           out_i, 1, nd, logN, logc, itabs[0], fold_i,
+                           itabs[3], itabs[4])
+                yh = torch.empty_like(c1s)
+                build.call("intt_scale_launch", c1s, c1s.stride(0), None, yh,
+                           1, nq, logN, logc, tabs[0], fold_h, tabs[3], tabs[4])
+                out_h = torch.empty_like(want_h)
+                build.call("hoist_bc_ntt_launch", yh, c1s, c1s.stride(0),
+                           out_h, 1, nbeta, alpha, nq, M, logN, logc,
+                           *tabs[5:])
+                out_b = torch.empty_like(want_b)
+                build.call("baseconv_ntt_launch", y, pt, out_b, nbeta, alpha,
+                           M, logN, logc, *tabs[5:11], t["mask"])
+                torch.cuda.synchronize()
+                if not (torch.equal(out_i, want_i) and torch.equal(out_h, want_h)
+                        and torch.equal(out_b, want_b)):
+                    raise AssertionError(f"intt_scale / hoist_db / baseconv_ntt "
+                                         f"with a cluster of {1 << logc} differ "
+                                         f"from their plain versions")
+            log(f"[kernels] Set-A logN 13 level {level} (nq={nq}, nbeta="
+                f"{nbeta}, M={M}, nd={nd}): intt_scale (row table), hoist_db "
+                f"and baseconv_ntt equal to the plain versions at every "
+                f"cluster size 1-16")
 
 
 def api_shapes(eng) -> dict:
@@ -953,12 +1187,14 @@ def round_divisions(eng):
     return undo
 
 
-def expected_launches(batched: bool, l: int) -> dict:
+def expected_launches(batched: bool, l: int, digits: int = 2) -> dict:
     """Kernel launches of one hemm call on each path (every other kernel
-    of ``KERNELS`` launches 0 times)."""
+    of ``KERNELS`` launches 0 times); ``digits``: the key-switch digits at
+    the products' level (2 at Set-B, 3 at Set-C)."""
     want = {k: 0 for k in KERNELS}
-    want.update(ntt=6 * l, intt=6 * l)    # per product: 2 digits, 2 ModDowns,
-    if batched:                           # 2 rescales × (iNTT + NTT)
+    per = digits + 4                      # per product: the digits, 2
+    want.update(ntt=per * l, intt=per * l)  # ModDowns, 2 rescales, each
+    if batched:                           # an iNTT + an NTT
         want.update(fused_hlt_indexed=2, hoist_db=2, intt_scale=2,
                     moddown_finish=2)
     else:   # 2 + 2·l single HLTs, 4 single hoists (Step 1, Step-2 hoist)
@@ -1067,9 +1303,32 @@ def profile_products(prog, ctA, ctB, first: int = 8, count: int = 4) -> str:
             f"{other_us / 1e3:.3f} ms")
 
 
-def counted_call(ctx, prog, ctA, ctB, batched: bool, l: int):
+def program_paths(prog) -> list:
+    """[staged, gathered, identity] (block, rotation) pairs that
+    ``tile_sources`` predicts for one call of a ``pallas`` HEMMProgram:
+    the sum over its HLT launches (Step 1 and Step 2, batched or
+    single) of ``expected_paths`` on each launch's operands."""
+    eng = prog.ctx.eng
+    runs = ((prog._step1, prog._step2) if prog.plan.batched
+            else (*prog._step1, *prog._step2))
+    total = [0, 0, 0]
+    for run in runs:
+        *_, perms, is_id = run._operands
+        if run.plan.batch is None:          # one DiagSet's operands
+            perms, is_id = perms[None], is_id[None]
+        M = len(eng.tools.digit_bases(run.plan.level)[0][2])
+        got = expected_paths(perms, is_id, run.plan.diag_slots, M,
+                             eng.params.N)
+        total = [a + b for a, b in zip(total, got)]
+    return total
+
+
+def counted_call(ctx, prog, ctA, ctB, batched: bool, l: int,
+                 tag: str = "main"):
     """The path's counted call: every launch counter zeroed just before it
-    and read just after, held against ``expected_launches``."""
+    and read just after, held against ``expected_launches``; the fused HLT
+    kernels' gather paths counted on the card and held against
+    ``program_paths``."""
     from repro_torch.kernels import ops
     h0 = ctx.counters["hlt_launches"]
     ops.reset_launch_counts()
@@ -1078,18 +1337,22 @@ def counted_call(ctx, prog, ctA, ctB, batched: bool, l: int):
         ("out", "stages"), staged_call(prog, ctA, ctB))))
     launches = ops.launch_counts()
     hlts = ctx.counters["hlt_launches"] - h0
-    want = expected_launches(batched, l)
+    # the products run two levels below the program's inputs
+    digits = len(ctx.eng.tools.digit_bases(prog.plan.level - 2))
+    want = expected_launches(batched, l, digits)
     what = "batched" if batched else "unbatched"
     if launches != want or hlts != (2 if batched else 2 + 2 * l):
         raise AssertionError(f"{what} hemm launched {launches}, {hlts} HLTs; "
                              f"expected {want}")
-    if paths[1] != 0 or paths[0] == 0:
+    want_paths = program_paths(prog)
+    if paths[1] != 0 or paths[0] == 0 or paths != want_paths:
         raise AssertionError(f"{what} hemm: fused HLT (block, rotation) "
-                             f"pairs staged / gathered / identity {paths}: "
-                             f"a Galois rotation missed the staged tile")
-    log(f"[main] {what} counted call: fused HLT (block, rotation) pairs "
+                             f"pairs staged / gathered / identity {paths}, "
+                             f"tile_sources predicts {want_paths}: a Galois "
+                             f"rotation missed the staged tile")
+    log(f"[{tag}] {what} counted call: fused HLT (block, rotation) pairs "
         f"staged {paths[0]}, gathered from device memory {paths[1]}, "
-        f"identity {paths[2]}")
+        f"identity {paths[2]} (as tile_sources predicts)")
     return res["out"], res["stages"], launches
 
 
@@ -1162,37 +1425,9 @@ def phase_main(params, shape):
     assert_ct_equal(ctC, ctX, "batched hemm, \"pallas\" vs \"xla\" engine")
     log(f"[main] batched call on the \"xla\" engine: c0, c1 array-equal to "
         f"the \"pallas\" engine's; stage ms {fmt(st)}")
-    # The reference's ModDown/Rescale divide by floor ((x - [x]_P)/P): a
-    # -1/2 bias per coefficient that, at N = 2^15, lands in the few slots
-    # whose root lies near ±1 (|Σ ζ^i| ≈ 2N/π) and adds up over the l
-    # product rescales.  With a stage bias b, each product is (x + b1)·
-    # (y + b2) + b3: the four sign combinations of the inputs cancel every
-    # bias term in C(A,B) - C(-A,B) - C(A,-B) + C(-A,-B) = 4·A·B, which
-    # must agree within the reference tests' tolerance; their mean is the
-    # program's fixed (data-independent) error.
-    ctnA = encrypt_matrix(ctx.eng, ctx.keys, -A, rng)
-    ctnB = encrypt_matrix(ctx.eng, ctx.keys, -B, rng)
-    outs = {"++": ctC, "-+": prog(ctnA, ctB), "+-": prog(ctA, ctnB),
-            "--": prog(ctnA, ctnB)}
-    dec = {}
-    for k, ct in outs.items():
-        v = decrypt_matrix(ctx.eng, ctx.keys, ct, m, n)
-        if v.shape != (m, n) or not np.all(np.isfinite(v)):
-            raise AssertionError(f"decrypted C({k}) is not finite / mis-shaped")
-        dec[k] = v
-    raw = np.abs(dec["++"] - A @ B)
-    fixed = (dec["++"] + dec["-+"] + dec["+-"] + dec["--"]) / 4
-    prod = (dec["++"] - dec["-+"] - dec["+-"] + dec["--"]) / 4
-    err = float(np.abs(prod - A @ B).max())
-    worst = np.unravel_index(int(raw.argmax()), raw.shape)
-    log(f"[main] max|C - A·B| = {raw.max():.3e} at {tuple(map(int, worst))} "
-        f"(entries > {TOL}: {int((raw > TOL).sum())} of {raw.size}; mean "
-        f"{raw.mean():.3e}); fixed error: max {np.abs(fixed).max():.3e}, "
-        f"there {fixed[worst]:+.3e}")
-    log(f"[main] sign-combined max|C - A·B| = {err:.3e} (limit {TOL}); "
-        f"output level {ctC.level}; peak device memory {peak / 1e9:.2f} GB")
-    if not err <= TOL:
-        raise AssertionError(f"decrypted product off by {err}")
+    worst = four_signs(ctx, prog, A, B, ctA, ctB, ctC, rng,
+                       f"output level {ctC.level}; peak device memory "
+                       f"{peak / 1e9:.2f} GB")
     # Witness for the cause: the same program, the same inputs, with each
     # floor division made a rounded one, must meet the bound unaided.
     undo = round_divisions(ctx.eng)
@@ -1209,7 +1444,7 @@ def phase_main(params, shape):
         raise AssertionError(f"rounded-division product off by {rerr.max()}")
 
     # the unbatched program: 2 + 2·l single HLTs on the same keys and inputs
-    del prog, outs, ctX, ctR
+    del prog, ctX, ctR
     ctx.invalidate()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1228,6 +1463,50 @@ def phase_main(params, shape):
     del uprog
     phase_schedules(ctx, plan, ctA, ctB, ctC)
     return launches, ulaunches
+
+
+def four_signs(ctx, prog, A, B, ctA, ctB, ctC, rng, note: str,
+               tag: str = "main"):
+    """Decrypt ``ctC`` = prog(A, B) and the program's outputs on (−A, B),
+    (A, −B), (−A, −B); require finite values of the right shape and the
+    sign-combined product within ``TOL`` of numpy A·B; print the raw
+    max|C − A·B| and the fixed error.  Returns the raw error's argmax.
+
+    The reference's ModDown/Rescale divide by floor ((x - [x]_P)/P): a
+    -1/2 bias per coefficient that, at N >= 2^15, lands in the few slots
+    whose root lies near ±1 (|Σ ζ^i| ≈ 2N/π) and adds up over the l
+    product rescales.  With a stage bias b, each product is (x + b1)·
+    (y + b2) + b3: the four sign combinations of the inputs cancel every
+    bias term in C(A,B) - C(-A,B) - C(A,-B) + C(-A,-B) = 4·A·B, which
+    must agree within the reference tests' tolerance; their mean is the
+    program's fixed (data-independent) error."""
+    import numpy as np
+    from repro_torch.core.hemm import decrypt_matrix, encrypt_matrix
+    m, n = prog.mm_plan.m, prog.mm_plan.n
+    ctnA = encrypt_matrix(ctx.eng, ctx.keys, -A, rng)
+    ctnB = encrypt_matrix(ctx.eng, ctx.keys, -B, rng)
+    outs = {"++": ctC, "-+": prog(ctnA, ctB), "+-": prog(ctA, ctnB),
+            "--": prog(ctnA, ctnB)}
+    dec = {}
+    for k, ct in outs.items():
+        v = decrypt_matrix(ctx.eng, ctx.keys, ct, m, n)
+        if v.shape != (m, n) or not np.all(np.isfinite(v)):
+            raise AssertionError(f"decrypted C({k}) is not finite / mis-shaped")
+        dec[k] = v
+    raw = np.abs(dec["++"] - A @ B)
+    fixed = (dec["++"] + dec["-+"] + dec["+-"] + dec["--"]) / 4
+    prod = (dec["++"] - dec["-+"] - dec["+-"] + dec["--"]) / 4
+    err = float(np.abs(prod - A @ B).max())
+    worst = np.unravel_index(int(raw.argmax()), raw.shape)
+    log(f"[{tag}] max|C - A·B| = {raw.max():.3e} at {tuple(map(int, worst))} "
+        f"(entries > {TOL}: {int((raw > TOL).sum())} of {raw.size}; mean "
+        f"{raw.mean():.3e}); fixed error: max {np.abs(fixed).max():.3e}, "
+        f"there {fixed[worst]:+.3e}")
+    log(f"[{tag}] sign-combined max|C - A·B| = {err:.3e} (limit {TOL}); "
+        f"{note}")
+    if not err <= TOL:
+        raise AssertionError(f"decrypted product off by {err}")
+    return worst
 
 
 def synced_ms(fn):
@@ -1384,6 +1663,109 @@ def phase_schedules(ctx, plan, ctA, ctB, ctC):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the Set-C path
+# ---------------------------------------------------------------------------
+
+
+def phase_set_c(shape) -> None:
+    """Set-C (logN 16, L 31, k 12, β 3; unreduced), the hemm ``shape`` on
+    ``CkksEngine(SET_C, datapath="pallas")``: keygen, the batched program's
+    counted call (launches held against ``expected_launches``, gather
+    paths against ``program_paths``) and a timed call, the four-sign check
+    with the raw error and the peak device memory printed; the unbatched
+    program array-equal to the batched one (``baseconv_ntt``, ``fused_hlt``
+    and the 2-polynomial ``intt_scale`` at logN 16); then the Step-1 σ HLT
+    on ``mo`` with the engine and context on ``"xla"`` and the fused
+    kernels' epsilon (``fused_eps``), which launches no kernel, array-equal
+    to the ``pallas`` σ HLT: the kernel-free oracle at logN 16."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import HEContext, compile_hemm, compile_hlt
+    from repro_torch.core.hemm import encrypt_matrix, plan_hemm
+    from repro_torch.core.hlt import hoist
+    from repro_torch.core.params import SET_C
+    from repro_torch.kernels import ops
+
+    m, l, n = shape
+    rng = np.random.default_rng(20261)
+    t0 = time.perf_counter()
+    ctx = HEContext(CkksEngine(SET_C, datapath="pallas"))
+    eng = ctx.eng
+    plan = plan_hemm(eng, m, l, n)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ctx.keygen(rng, rot_steps=plan.rot_steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    A = rng.uniform(-1, 1, (m, l))
+    B = rng.uniform(-1, 1, (l, n))
+    ctA = encrypt_matrix(eng, ctx.keys, A, rng)
+    ctB = encrypt_matrix(eng, ctx.keys, B, rng)
+    prog = compile_hemm(ctx, plan, schedule="pallas", rotation_chunk=1)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"[set-c] {SET_C.name} (logN {SET_C.logN}, L {SET_C.L}, k {SET_C.k},"
+        f" beta {SET_C.beta}) hemm {m}x{l}x{n} on CkksEngine(datapath="
+        f"\"pallas\"): plan {t1 - t0:.1f} s ({plan.total_rotations} "
+        f"rotations), keygen {t2 - t1:.1f} s ({len(ctx.keys.galois)} Galois "
+        f"keys), encrypt+compile {t3 - t2:.1f} s; arena "
+        f"{ctx.arena.nbytes / 1e9:.2f} GB, step1 d={prog.plan.step1.d[0]}, "
+        f"step2 B={prog.plan.step2.batch}")
+    prog(ctA, ctB)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctC, stages, launches = counted_call(ctx, prog, ctA, ctB, True, l, "set-c")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[set-c] batched counted call: launches {json.dumps(launches)}; "
+        f"stage ms {fmt(stages)}")
+    _, st = staged_call(prog, ctA, ctB)
+    log(f"[set-c] batched timed call: stage ms {fmt(st)}")
+    four_signs(ctx, prog, A, B, ctA, ctB, ctC, rng,
+               f"output level {ctC.level}; peak device memory "
+               f"{peak / 1e9:.2f} GB over the counted call", "set-c")
+
+    del prog
+    ctx.invalidate()
+    torch.cuda.empty_cache()
+    uprog = compile_hemm(ctx, plan, schedule="pallas", rotation_chunk=1,
+                         batched=False)
+    ctU, stages, ulaunches = counted_call(ctx, uprog, ctA, ctB, False, l,
+                                          "set-c")
+    assert_ct_equal(ctC, ctU, "Set-C unbatched vs batched hemm")
+    log(f"[set-c] unbatched counted call: array-equal to the batched "
+        f"program's output; launches {json.dumps(ulaunches)}; stage ms "
+        f"{fmt(stages)}")
+    del uprog, ctU
+    ctx.invalidate()
+    torch.cuda.empty_cache()
+
+    level, sigma = ctA.level, plan.ds_sigma
+    run = compile_hlt(ctx, sigma, level=level, schedule="pallas",
+                      rotation_chunk=1)
+    want, pms = synced_ms(lambda: run(hoist(eng, ctA, datapath="pallas")))
+    xctx = HEContext(eng, ctx.keys, datapath="xla")
+    xrun = compile_hlt(xctx, sigma, level=level, schedule="mo",
+                       rotation_chunk=8)
+    eng.datapath = "xla"
+    try:
+        with fused_eps():
+            ops.reset_launch_counts()
+            got, mms = synced_ms(lambda: xrun(ctA))
+            xl = ops.launch_counts()
+    finally:
+        eng.datapath = "pallas"
+    if any(xl.values()):
+        raise AssertionError(f"Set-C σ HLT on mo, \"xla\" launched {xl}")
+    assert_ct_equal(want, got, "Set-C σ HLT mo (\"xla\", fused epsilon) vs "
+                    "pallas")
+    log(f"[set-c] σ HLT d={sigma.d} level {level}: mo on the \"xla\" engine "
+        f"and HEContext(datapath=\"xla\") with the fused epsilon, 0 kernel "
+        f"launches, {mms:.3f} ms with its chain hoist; c0, c1 array-equal "
+        f"to pallas (hoist + fused_hlt + merged ModDown), {pms:.3f} ms")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: whole program on the kernels vs on the plain versions
 # ---------------------------------------------------------------------------
 
@@ -1475,6 +1857,10 @@ KERNELS = {
                "src/repro/kernels/modmul.py:56"),
 }
 
+#: the Set-C hemm: Table III's Set-C shape is 160³, whose ~636 rotation
+#: keys of ~69 MB alone exceed the card's 80 GB; 32³ takes ~124 (PERF.md §4)
+SET_C_SHAPE = (32, 32, 32)
+
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
@@ -1527,6 +1913,13 @@ def main() -> int:
                 for k in KERNELS}
     torch.cuda.empty_cache()
     log(f"[main] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gc.collect()        # the Set-B context and its programs form a cycle
+    torch.cuda.empty_cache()
+    phase_set_c(SET_C_SHAPE)
+    torch.cuda.empty_cache()
+    log(f"[set-c] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     phase_cpu_vs_cuda()

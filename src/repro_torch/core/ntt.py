@@ -8,7 +8,8 @@ port lives in bit-reversed order, as in the reference.
 
 Shapes: x ``(..., M, N)`` int32 residues; twiddle tables ``(M, N)``;
 moduli and constants ``(M, 1)``.  The CUDA kernels run the Montgomery
-stage recursion in shared memory (``block_ntt_fwd`` / ``block_intt`` in
+butterflies of ``ntt_mont_raw`` / ``intt_mont_raw`` split over a
+thread-block cluster (``split_fwd_row`` / ``split_inv_row`` in
 ``csrc/common.cuh``; the standalone transforms are ``csrc/ntt.cu``).
 """
 from __future__ import annotations

@@ -1,7 +1,9 @@
 // Shared device routines of the port's kernels: u32 Montgomery arithmetic
-// (R = 2^32), a block-resident negacyclic NTT / iNTT in shared memory
-// (intt_scale.cu, hoist.cu), and the split transforms that spread one row
-// over a thread-block cluster with their launcher (ntt.cu, moddown.cu).
+// (R = 2^32), the HPS BaseConv of a few coefficient rows, and the split
+// negacyclic transforms that spread one row over a thread-block cluster,
+// with their launcher (ntt.cu, intt_scale.cu, hoist.cu, moddown.cu).  No
+// kernel holds a whole row in one block: a block holds one chunk and its
+// twiddles, 33 KB for a 2^15 row over 8 blocks, 66 KB for a 2^16 row.
 //
 // montmul computes what repro/core/modmath.py montmul computes, a·b·2^-32
 // mod q as the canonical residue in [0, q), for any a·b < q·2^32 (residues
@@ -13,15 +15,6 @@
 // canonical residue, so the outputs are equal bit for bit.  Each
 // conditional add or subtract is an unsigned min (min(t, t − q) is t − q
 // exactly when t >= q), one add-and-min instruction on Hopper.
-//
-// block_ntt_fwd / block_intt mirror ntt_mont_raw / intt_mont_raw
-// (repro/core/ntt.py:84,102): Cooley–Tukey natural -> bit-reversed order,
-// Gentleman–Sande back, twiddles in the Montgomery domain.  One block owns
-// one row of N u32 values in dynamic shared memory (128 KiB at N = 2^15);
-// twiddles are read once per butterfly through __ldg from global memory,
-// because row plus twiddle row would exceed a Hopper block's 227 KB.
-// The caller synchronises after filling the row; each stage ends with
-// __syncthreads(), so the row is complete when the routine returns.
 #pragma once
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -57,55 +50,51 @@ __device__ __forceinline__ uint32_t floor_count(double s) {
   return static_cast<uint32_t>(floor(__dadd_rn(s, 0.5e-6)));
 }
 
-__device__ void block_ntt_fwd(uint32_t* s, int logN,
-                              const uint32_t* __restrict__ psi, uint32_t q,
-                              uint32_t qneg) {
-  const int half = 1 << (logN - 1);
-  for (int lm = 0; lm < logN; ++lm) {          // m = 2^lm groups, t = N/2m
-    const int lt = logN - lm - 1;
-    const int tmask = (1 << lt) - 1;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> lt;
-      const int i0 = (i << (lt + 1)) + (k & tmask);
-      const int i1 = i0 + (1 << lt);
-      const uint32_t w = __ldg(psi + (1 << lm) + i);
-      const uint32_t u = s[i0];
-      const uint32_t v = montmul(s[i1], w, q, qneg);
-      s[i0] = montadd(u, v, q);
-      s[i1] = montsub(u, v, q);
+// The HPS BaseConv of nd coefficient rows y (row i at y + i·N) onto one
+// target limb (Montgomery weights w[i], float64 inv_d[i], D mod q dm) at
+// the C positions a·n + r0, a < C, into v: the arithmetic of the
+// reference's fused kernels — the float64 floor count __dmul_rn for i = 0,
+// then multiply and add rounded apart in ascending i, floor(s + 0.5e-6);
+// the Montgomery sum beside it.  Drop row (or digit row) outside and a
+// inside, so C loads are in flight; the reads are coalesced across r0.
+template <int LOGC>
+__device__ __forceinline__ void split_baseconv(uint32_t* v,
+                                               const uint32_t* __restrict__ y,
+                                               int nd, long long N, int n,
+                                               int r0,
+                                               const uint32_t* __restrict__ w,
+                                               const double* __restrict__ inv_d,
+                                               uint32_t dm, uint32_t q,
+                                               uint32_t qn) {
+  double fs[1 << LOGC];
+#pragma unroll
+  for (int a = 0; a < (1 << LOGC); ++a) v[a] = 0u;
+  for (int i = 0; i < nd; ++i) {
+    const uint32_t* yi = y + i * N + r0;
+    const uint32_t wi = w[i];
+    const double di = inv_d[i];
+#pragma unroll
+    for (int a = 0; a < (1 << LOGC); ++a) {
+      const uint32_t yv = yi[a * n];
+      fs[a] = i == 0 ? __dmul_rn(static_cast<double>(yv), di)
+                     : fmac_nofuse(fs[a], yv, di);
+      v[a] = montadd(v[a], montmul(yv, wi, q, qn), q);
     }
-    __syncthreads();
   }
-}
-
-// Inverse transform without the final N^-1 factor (the caller folds it
-// into its epilogue, as intt_mont_raw ends with one montmul by n_inv).
-__device__ void block_intt(uint32_t* s, int logN,
-                           const uint32_t* __restrict__ psii, uint32_t q,
-                           uint32_t qneg) {
-  const int half = 1 << (logN - 1);
-  for (int lh = logN - 1; lh >= 0; --lh) {     // h = 2^lh groups, t = N/2h
-    const int lt = logN - 1 - lh;
-    const int tmask = (1 << lt) - 1;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> lt;
-      const int i0 = (i << (lt + 1)) + (k & tmask);
-      const int i1 = i0 + (1 << lt);
-      const uint32_t w = __ldg(psii + (1 << lh) + i);
-      const uint32_t u = s[i0];
-      const uint32_t v = s[i1];
-      s[i0] = montadd(u, v, q);
-      s[i1] = montmul(montsub(u, v, q), w, q, qneg);
-    }
-    __syncthreads();
-  }
+#pragma unroll
+  for (int a = 0; a < (1 << LOGC); ++a)
+    v[a] = montsub(v[a], montmul(floor_count(fs[a]), dm, q, qn), q);
 }
 
 // ---------------------------------------------------------------------------
 // Split transforms: one row of N = 2^logN values over a thread-block
-// cluster of C = 2^c blocks (ntt.cu, and moddown.cu through
-// split_fwd_row and launch_split).  Write a row index j = a·n + r with n = N/C the chunk length,
-// a < C the chunk and r < n the offset in it.
+// cluster of C = 2^c blocks (split_fwd_row: ntt.cu, hoist.cu, moddown.cu;
+// split_inv_row: ntt.cu, intt_scale.cu; all launch through launch_split).
+// Write a row index j = a·n + r with n = N/C the chunk length, a < C the
+// chunk and r < n the offset in it.  The forward transform (Cooley–Tukey,
+// natural -> bit-reversed order) and the inverse (Gentleman–Sande back)
+// run the butterflies of ntt_mont_raw / intt_mont_raw (repro/core/ntt.py)
+// in another order, so the output is the same bit for bit.
 //
 // * Cross stages: the first c Cooley–Tukey stages (t = N/2 … n), or the
 //   last c Gentleman–Sande ones, pair indices of equal r; their twiddle
@@ -185,11 +174,23 @@ __device__ __forceinline__ void split_cross_inv(uint32_t* v,
 
 // Chunk a's twiddles into tws[1 … n): the local table index i of stage
 // σ = log2(i) holds the global psi[2^(c+σ) + a·2^σ + (i − 2^σ)], for the
-// forward and the inverse tables alike.  The caller synchronises.
+// forward and the inverse tables alike.  Each thread starts its (at most
+// 8: 8·blockDim >= n, split_threads) loads before it stores any, so they
+// are in flight together.  The caller synchronises.
 __device__ __forceinline__ void split_load_twiddles(
     uint32_t* tws, int n, int c, int a, const uint32_t* __restrict__ psi) {
-  for (int i = threadIdx.x + 1; i < n; i += blockDim.x)
-    tws[i] = __ldg(psi + i + (((1 << c) + a - 1) << (31 - __clz(i))));
+  uint32_t t[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int i = threadIdx.x + e * blockDim.x;
+    if (i >= 1 && i < n)
+      t[e] = __ldg(psi + i + (((1 << c) + a - 1) << (31 - __clz(i))));
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int i = threadIdx.x + e * blockDim.x;
+    if (i >= 1 && i < n) tws[i] = t[e];
+  }
 }
 
 // One forward pass over a chunk (length n = 2^ln; tws its twiddle table):
@@ -298,7 +299,8 @@ __device__ void split_local_inv(uint32_t* s, const uint32_t* tws, int ln,
 // x = row << LOGC, so the cluster is one row; psi its twiddle row).  The
 // row's values come from load(r0, v): v[a] = value at a·n + r0 for a < C,
 // r0 in the block's r-range [k·R, (k+1)·R), so a caller can compute them
-// in registers (moddown.cu's BaseConv) instead of reading them.  After the
+// in registers (split_baseconv in hoist.cu and moddown.cu) instead of
+// reading them.  After the
 // local stages, store(j, value) receives the transformed row at j = k·n +
 // i, i < n: chunk k, k the block's rank.
 template <int LOGC, typename Load, typename Store>
@@ -330,6 +332,74 @@ __device__ __forceinline__ void split_fwd_row(uint32_t* s, int logN,
   split_local_fwd(s, tws, ln, q, qn);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     store((k << ln) + i, s[split_pad(i)]);
+}
+
+// One row's inverse split transform on the calling block's cluster (grid
+// x = row << LOGC; psii its twiddle row), the mirror of split_fwd_row:
+// load(j) gives the row's value at j = k·n + i, i < n (chunk k, k the
+// block's rank), so a caller reads it in place through a batch stride or
+// a row table.  Block k runs the local stages on chunk k (the last pass
+// held in registers across a cluster barrier), scatters each value to the
+// block owning its r, and that block runs the c cross stages; then
+// store(j, value) receives the row's value at j = a·n + r for a < C and r
+// in the block's r-range [k·R, (k+1)·R), before any N^-1 factor, which
+// the caller folds into its epilogue.  Needs ln >= 3.
+template <int LOGC, typename Load, typename Store>
+__device__ __forceinline__ void split_inv_row(uint32_t* s, int logN,
+                                              const uint32_t* __restrict__ psii,
+                                              uint32_t q, uint32_t qn, Load load,
+                                              Store store) {
+  namespace cg = cooperative_groups;
+  constexpr int C = 1 << LOGC;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.block_rank());
+  const int ln = logN - LOGC, n = 1 << ln, R = n >> LOGC;
+
+  // chunk k and its twiddles: load (each thread's 8 loads in flight
+  // together), then every local stage but the last pass
+  uint32_t* tws = s + n + (n >> 5);
+  {
+    uint32_t x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = threadIdx.x + e * blockDim.x;
+      if (i < n) x[e] = load((k << ln) + i);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = threadIdx.x + e * blockDim.x;
+      if (i < n) s[split_pad(i)] = x[e];
+    }
+  }
+  split_load_twiddles(tws, n, LOGC, k, psii);
+  __syncthreads();
+  split_local_inv(s, tws, ln, q, qn);
+  const int b3 = ln - 3, u = threadIdx.x;
+  uint32_t v[8];
+  if (u < (1 << b3)) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = s[split_pad((e << b3) | u)];
+    split_unit_inv<3>(v, tws, ln, b3, u, q, qn);
+  }
+  cluster.sync();                     // every block is done with its chunk
+  if (u < (1 << b3)) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = (e << b3) | u;    // to the owner of r, segment k
+      cluster.map_shared_rank(s, r >> (ln - LOGC))[split_pad(
+          k * R + (r & (R - 1)))] = v[e];
+    }
+  }
+  cluster.sync();                     // block k holds all C segments of its r
+
+  for (int w = threadIdx.x; w < R; w += blockDim.x) {
+    uint32_t c[C];
+#pragma unroll
+    for (int a = 0; a < C; ++a) c[a] = s[split_pad(a * R + w)];
+    split_cross_inv<LOGC>(c, psii, q, qn);
+#pragma unroll
+    for (int a = 0; a < C; ++a) store(a * n + k * R + w, c[a]);
+  }
 }
 
 // Threads per block of a split transform of chunk length n: one thread per
@@ -384,21 +454,6 @@ cudaError_t launch_split(Kernel kernel, int logc, int B, int M, int logN,
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// Threads per block for a block-resident row of 2^logN values.
-inline int row_threads(int logN) {
-  int half = 1 << (logN - 1);
-  return half < 1024 ? (half < 32 ? 32 : half) : 1024;
-}
-
-// Dynamic shared memory of one row; above 48 KB the kernel must opt in.
-template <typename K>
-inline cudaError_t reserve_row_smem(K kernel, int logN) {
-  size_t bytes = sizeof(uint32_t) << logN;
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 }  // namespace fame

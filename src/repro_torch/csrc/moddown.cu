@@ -18,10 +18,9 @@
 // epilogue behind:
 // * prologue, in registers: block k's thread for offset r0 of its r-range
 //   computes the C values at j = a·n + r0 (n = N/C, a < C) straight from
-//   y[p] — the Montgomery sum over i of y·w[r, i] and the float64 floor
-//   count of Σ y·inv_d[i], with the arithmetic of the reference's fused
-//   kernel (__dmul_rn for i = 0, then multiply and add rounded apart in
-//   ascending i, floor(s + 0.5e-6)) — reads coalesced across r0;
+//   y[p] (common.cuh split_baseconv: the Montgomery sum over i of
+//   y·w[r, i] and the float64 floor count of Σ y·inv_d[i], with the
+//   arithmetic of the reference's fused kernel) — reads coalesced across r0;
 // * those C values go through the c cross NTT stages in registers and then,
 //   through distributed shared memory, to the block of their chunk;
 // * each block runs the local stages on its chunk and writes it once as
@@ -68,25 +67,7 @@ __global__ void __launch_bounds__(1024)
   fame::split_fwd_row<LOGC>(
       s, logN, psi + r * N, q, qn,
       [&](int r0, uint32_t* v) {          // BaseConv_r at a·n + r0, a < C
-        double fs[1 << LOGC];             // C loads in flight per drop row
-#pragma unroll
-        for (int a = 0; a < (1 << LOGC); ++a) v[a] = 0u;
-        for (int i = 0; i < nd; ++i) {
-          const uint32_t* yi = yp + i * N + r0;
-          const uint32_t wi = wr[i];
-          const double di = inv_d[i];
-#pragma unroll
-          for (int a = 0; a < (1 << LOGC); ++a) {
-            const uint32_t yv = yi[a * n];
-            fs[a] = i == 0 ? __dmul_rn(static_cast<double>(yv), di)
-                           : fame::fmac_nofuse(fs[a], yv, di);
-            v[a] = fame::montadd(v[a], fame::montmul(yv, wi, q, qn), q);
-          }
-        }
-#pragma unroll
-        for (int a = 0; a < (1 << LOGC); ++a)
-          v[a] = fame::montsub(
-              v[a], fame::montmul(fame::floor_count(fs[a]), dm, q, qn), q);
+        fame::split_baseconv<LOGC>(v, yp, nd, N, n, r0, wr, inv_d, dm, q, qn);
       },
       [&](int j, uint32_t conv) {
         o[j] = fame::montmul(fame::montsub(xr[j], conv, q), pi, q, qn);

@@ -17,8 +17,9 @@
 //
 // Design: one (batch, limb) row per thread-block cluster of C = 2^c blocks
 // (C from the row count and N, kernels/ntt.py cluster_size; 1-16), the
-// split transform of common.cuh (the forward one is split_fwd_row, which
-// moddown.cu shares, and both launch through launch_split).  Forward: block k loads the C segments
+// split transform of common.cuh (split_fwd_row, which hoist.cu and
+// moddown.cu share; split_inv_row, which intt_scale.cu shares; all launch
+// through launch_split).  Forward: block k loads the C segments
 // x[a·n + k·R + (0 … R)] (n = N/C, R = n/C; coalesced), runs the c cross
 // stages in registers, and stores each value into the shared memory of
 // the block that owns its chunk (distributed shared memory); after a
@@ -35,11 +36,7 @@
 // Inputs are row slices of larger polynomials (a digit's limbs, the
 // special limbs, one last limb): rows are contiguous, so the kernel takes
 // a batch stride and reads them in place.
-#include <cooperative_groups.h>
-
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,52 +72,16 @@ __global__ void __launch_bounds__(1024)
                   const uint32_t* __restrict__ ninv,
                   const uint32_t* __restrict__ q32,
                   const uint32_t* __restrict__ qneg) {
-  constexpr int C = 1 << LOGC;
   extern __shared__ uint32_t s[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int k = static_cast<int>(cluster.block_rank());
   const int m = blockIdx.x >> LOGC;
   const long long b = blockIdx.y;
-  const int ln = logN - LOGC, n = 1 << ln, R = n >> LOGC;
   const long long row = static_cast<long long>(m) << logN;
-  const uint32_t* tw = psii + row;
-  const uint32_t q = q32[m], qn = qneg[m];
-
-  // chunk k and its twiddles: load, then every local stage but the last pass
-  const uint32_t* xr = x + b * x_bstride + row + (static_cast<long long>(k) << ln);
-  uint32_t* tws = s + n + (n >> 5);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[fame::split_pad(i)] = xr[i];
-  fame::split_load_twiddles(tws, n, LOGC, k, tw);
-  __syncthreads();
-  fame::split_local_inv(s, tws, ln, q, qn);
-  const int b3 = ln - 3, u = threadIdx.x;
-  uint32_t v[8];
-  if (u < (1 << b3)) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = s[fame::split_pad((e << b3) | u)];
-    fame::split_unit_inv<3>(v, tws, ln, b3, u, q, qn);
-  }
-  cluster.sync();                     // every block is done with its chunk
-  if (u < (1 << b3)) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int r = (e << b3) | u;    // to the owner of r, segment k
-      cluster.map_shared_rank(s, r >> (ln - LOGC))[fame::split_pad(
-          k * R + (r & (R - 1)))] = v[e];
-    }
-  }
-  cluster.sync();                     // block k holds all C segments of its r
-
-  const uint32_t ni = ninv[m];
-  uint32_t* o = out + (b * M + m) * (1LL << logN) + k * R;
-  for (int w = threadIdx.x; w < R; w += blockDim.x) {
-    uint32_t c[C];
-#pragma unroll
-    for (int a = 0; a < C; ++a) c[a] = s[fame::split_pad(a * R + w)];
-    fame::split_cross_inv<LOGC>(c, tw, q, qn);
-#pragma unroll
-    for (int a = 0; a < C; ++a) o[a * n + w] = fame::montmul(c[a], ni, q, qn);
-  }
+  const uint32_t* xr = x + b * x_bstride + row;
+  uint32_t* o = out + (b * M + m) * (1LL << logN);
+  const uint32_t q = q32[m], qn = qneg[m], ni = ninv[m];
+  fame::split_inv_row<LOGC>(
+      s, logN, psii + row, q, qn, [&](int j) { return xr[j]; },
+      [&](int j, uint32_t c) { o[j] = fame::montmul(c, ni, q, qn); });
 }
 
 }  // namespace

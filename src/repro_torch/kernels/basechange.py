@@ -14,16 +14,22 @@ on-card reference) and a CUDA kernel wrapper (``csrc/intt_scale.cu``,
   The TPU kernel double-buffers its copy-in because its grid runs in
   order; on the GPU many blocks in flight hide the copy, so the CUDA form
   is two launches (the ``intt_scale`` kernel over all B·nq limb rows,
-  then a BaseConv+NTT+passthrough kernel over (B, β, M) blocks) that
+  then a BaseConv+NTT+passthrough kernel over (B, β, M) rows) that
   together compute the same function.  Both read the ciphertexts' c1 rows
   in place: digit j's rows are c1 rows j·α.., and the TPU's zero-padded
   operand layout is not rebuilt.
 * ``moddown_finish`` — BaseConv from the nd drop-basis rows → NTT →
-  (x − conv)·P⁻¹, over a leading batch of polynomials in one launch.  Its
-  kernel splits each (polynomial, target row) over a thread-block cluster
-  of ``kernels/ntt.py`` ``cluster_size`` blocks, as ``ntt`` does a row,
-  and computes the BaseConv into the NTT's cross stages, in the order of
-  :func:`moddown_finish_split_plain` (tests only).
+  (x − conv)·P⁻¹, over a leading batch of polynomials in one launch.
+
+Every kernel splits each row over a thread-block cluster of
+``kernels/ntt.py`` ``cluster_size`` blocks, as ``ntt`` does: the inverse
+ones (``intt_scale``) on ``common.cuh`` ``split_inv_row`` with the N⁻¹
+and the scale folded into one per-row constant, the forward ones on
+``split_fwd_row`` with the BaseConv computed into its cross stages, in
+the order of the ``*_split_plain`` functions (tests only).  So every ring
+up to ``SPLIT_MAX_LOGN`` fits.  The merged ModDown's ``intt_scale``
+launch reads its drop rows in place through a row table
+(``intt_scale_rows_cuda``).
 
 The BaseConv floor correction is ``floor(Σ y_i·inv_d_i + 0.5e-6)`` in
 float64 everywhere: the reference is bit-exact in f64 (its CPU backend),
@@ -32,6 +38,8 @@ reference's, digit-padded to ``alpha`` rows (padded rows carry zero
 ``hat``/``inv_d``/``w`` and contribute exactly zero).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -43,11 +51,8 @@ from repro_torch.kernels import build
 #: floor-correction epsilon of the fused HPS BaseConv (the reference's)
 CORRECTION_EPS = 0.5e-6
 
-#: largest ring the block-resident NTT holds: one u32 row of 2^15 is
-#: 128 KiB of shared memory; 2^16 (256 KiB) exceeds a Hopper block's 227 KB
-MAX_LOGN = 15
-#: largest ring of the kernels that split a row over a cluster (ntt, intt,
-#: moddown_finish): a 2^16 row over 8 blocks is 32 KiB a block
+#: largest ring of the kernels: a 2^16 row over 8 blocks is 32 KiB of
+#: values a block (2^17 would need chunks above the 2^13 a block takes)
 SPLIT_MAX_LOGN = 16
 
 
@@ -65,6 +70,36 @@ def _floor_count(y, inv_d):
     return torch.floor(s + CORRECTION_EPS).to(torch.int64)
 
 
+def _conv(y, w, d, inv_d, q32, qneg):
+    """y: (c, n, K) scaled coefficients of n source rows at any K
+    positions; w: (R, n); d: (R, 1); inv_d: (n, 1).  Returns the (c, R, K)
+    HPS BaseConv onto the R target rows, coefficient domain."""
+    v = _floor_count(y, inv_d)                                    # (c, K)
+    prod = mm.montmul(y[:, None], w[None, :, :, None], q32[..., None],
+                      qneg[..., None])                            # (c, R, n, K)
+    acc = mm.montsum(prod, q32, axis=2)
+    return mm.montsub(acc, mm.montmul(v[:, None], d, q32, qneg), q32)
+
+
+def _conv_split(y, w, d, inv_d, q32, qneg, C: int):
+    """``_conv`` at every position, in the kernels' order over a cluster
+    of C blocks: block k of a row's cluster computes the positions j =
+    a·n + k·R' + u (a < C, u < R' = n/C, n = N/C), its r-slice."""
+    from repro_torch.kernels import ntt as kntt
+    c, nd, N = y.shape
+    R = w.shape[0]
+    kntt._split_dims(N, C)
+    r_blk = N // C // C
+    yv = y.reshape(c, nd, C, C, r_blk)                            # [a, k, u]
+    conv = torch.empty((c, R, C, C, r_blk), dtype=torch.int32,
+                       device=y.device)
+    for k in range(C):                        # block k's slice, every a
+        ys = yv[:, :, :, k].reshape(c, nd, C * r_blk)
+        conv[:, :, :, k] = _conv(ys, w, d, inv_d, q32, qneg
+                                 ).reshape(c, R, C, r_blk)
+    return conv.reshape(c, R, N)
+
+
 def intt_scale_plain(x, psii_m, ninv_m, scale_m, q32, qneg):
     """x: (..., R, N) eval domain; tables (R, N) / (R, 1).  Returns the
     (..., R, N) coefficient-domain rows times their Montgomery scale."""
@@ -72,16 +107,43 @@ def intt_scale_plain(x, psii_m, ninv_m, scale_m, q32, qneg):
     return mm.montmul(coeff, scale_m, q32, qneg)
 
 
+def intt_scale_split_plain(x, psii_m, ninv_m, scale_m, q32, qneg, C: int,
+                           rows=None):
+    """``intt_scale`` in the order of its kernel over a cluster of C blocks
+    (tests only): ``intt_split_plain`` with the epilogue's one product by
+    the folded constant montmul(N⁻¹, scale).  ``rows``: the kernel's row
+    table, output row r reading input row rows[r] of x (..., *, N)."""
+    from repro_torch.kernels import ntt as kntt
+    if rows is not None:
+        x = x[..., rows, :]
+    return kntt.intt_split_plain(x, psii_m, mm.montmul(ninv_m, scale_m, q32,
+                                                        qneg), q32, qneg, C)
+
+
 def _baseconv_ntt_plain(y, w, d, inv_d, psi_m, q32, qneg):
     """y: (B, alpha, N) one digit's scaled rows; w: (M, alpha); d: (M, 1);
     inv_d: (alpha, 1).  Returns the (B, M, N) eval-domain BaseConv."""
-    v = _floor_count(y, inv_d)                                   # (B, N)
-    prod = mm.montmul(y[:, None], w[None, :, :, None], q32[..., None],
-                      qneg[..., None])                           # (B, M, a, N)
-    acc = mm.montsum(prod, q32, axis=2)                          # (B, M, N)
-    corr = mm.montmul(v[:, None], d, q32, qneg)
-    conv = mm.montsub(acc, corr, q32)
-    return core_ntt.ntt_mont_raw(conv, psi_m, q32, qneg)
+    return core_ntt.ntt_mont_raw(_conv(y, w, d, inv_d, q32, qneg), psi_m, q32,
+                                 qneg)
+
+
+def _baseconv_ntt_split_plain(y, w, d, inv_d, psi_m, q32, qneg, C: int):
+    """``_baseconv_ntt_plain`` in the order of ``csrc/hoist.cu``: the
+    BaseConv per block r-slice, then ``ntt_split_plain``."""
+    from repro_torch.kernels import ntt as kntt
+    return kntt.ntt_split_plain(_conv_split(y, w, d, inv_d, q32, qneg, C),
+                                psi_m, q32, qneg, C)
+
+
+def _baseconv_ntt(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask,
+                  transform):
+    nbeta, _, alpha = w.shape
+    outs = []
+    for j in range(nbeta):
+        res = transform(y[None, j * alpha:(j + 1) * alpha], w[j], d[j],
+                        inv_d[j], psi_m, q32, qneg)[0]
+        outs.append(torch.where(mask[j] != 0, passthrough, res))
+    return torch.stack(outs)
 
 
 def baseconv_ntt_plain(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask):
@@ -90,47 +152,59 @@ def baseconv_ntt_plain(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask):
     float64; psi_m: (M, N); q32/qneg: (M, 1); passthrough: (M, N).
     Returns (nbeta, M, N): where mask != 0 the passthrough row, else the
     eval-domain BaseConv."""
-    nbeta, _, alpha = w.shape
-    outs = []
-    for j in range(nbeta):
-        res = _baseconv_ntt_plain(y[None, j * alpha:(j + 1) * alpha], w[j],
-                                  d[j], inv_d[j], psi_m, q32, qneg)[0]
-        outs.append(torch.where(mask[j] != 0, passthrough, res))
-    return torch.stack(outs)
+    return _baseconv_ntt(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask,
+                         _baseconv_ntt_plain)
 
 
-def hoist_db_plain(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
-                   psi_m, q_full, qneg_full, mask, *, nbeta: int, alpha: int):
-    """c1s: (B, nq, N) eval-domain main limbs.  Digit j owns c1s rows
-    j·alpha.. (the last digit may be short: its padded table rows would
-    contribute exactly zero, so they are skipped).  Returns (B, nbeta, M, N),
-    the own rows passed through from c1s."""
+def baseconv_ntt_split_plain(y, w, d, inv_d, psi_m, q32, qneg, passthrough,
+                             mask, C: int):
+    """``baseconv_ntt`` in the order of its kernel over a cluster of C
+    blocks (tests only): per digit and target limb the BaseConv per block
+    r-slice, then ``ntt_split_plain``; own limbs from the passthrough."""
+    return _baseconv_ntt(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask,
+                         functools.partial(_baseconv_ntt_split_plain, C=C))
+
+
+def _hoist_db(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
+              psi_m, q_full, qneg_full, mask, nbeta, alpha, scale,
+              transform):
     nq = c1s.shape[1]
-    y = intt_scale_plain(c1s, psii_m[:nq], ninv_m[:nq], hat_m[:nq], q_pad[:nq],
-                         qneg_pad[:nq])
+    y = scale(c1s, psii_m[:nq], ninv_m[:nq], hat_m[:nq], q_pad[:nq],
+              qneg_pad[:nq])
     outs = []
     for j in range(nbeta):
         na = min(alpha, nq - j * alpha)
-        res = _baseconv_ntt_plain(y[:, j * alpha:j * alpha + na], w[j][:, :na],
-                                  d[j], inv_d[j][:na], psi_m, q_full, qneg_full)
+        res = transform(y[:, j * alpha:j * alpha + na], w[j][:, :na], d[j],
+                        inv_d[j][:na], psi_m, q_full, qneg_full)
         top = torch.where(mask[j][:nq] != 0, c1s, res[:, :nq])
         outs.append(torch.cat([top, res[:, nq:]], dim=1))
     return torch.stack(outs, dim=1)
 
 
+def hoist_db_plain(c1s, *tables, nbeta: int, alpha: int):
+    """c1s: (B, nq, N) eval-domain main limbs; tables: psii_m, ninv_m,
+    hat_m, q_pad, qneg_pad, w, d, inv_d, psi_m, q_full, qneg_full, mask
+    (``build_hoist_tables``).  Digit j owns c1s rows j·alpha.. (the last
+    digit may be short: its padded table rows would contribute exactly
+    zero, so they are skipped).  Returns (B, nbeta, M, N), the own rows
+    passed through from c1s."""
+    return _hoist_db(c1s, *tables, nbeta, alpha, intt_scale_plain,
+                     _baseconv_ntt_plain)
+
+
+def hoist_db_split_plain(c1s, *tables, nbeta: int, alpha: int, C: int):
+    """``hoist_db`` in the order of its two kernels over clusters of C
+    blocks (tests only): ``intt_scale_split_plain`` over the nq rows, then
+    per digit and target limb the BaseConv per block r-slice and
+    ``ntt_split_plain``; own limbs passed through from c1s."""
+    return _hoist_db(c1s, *tables, nbeta, alpha,
+                     functools.partial(intt_scale_split_plain, C=C),
+                     functools.partial(_baseconv_ntt_split_plain, C=C))
+
+
 #: polynomials per step of the plain ModDown: bounds its (16, R, nd, N)
 #: int64 product (≈ 0.5 GB at Set-B) when it runs over a whole HLT batch
 _PLAIN_MODDOWN_POLYS = 16
-
-
-def _moddown_conv(y, w, d, inv_d, q32, qneg):
-    """y: (c, nd, K) drop-basis coefficients at any K positions.  Returns
-    the (c, R, K) BaseConv onto the R target rows, coefficient-domain."""
-    v = _floor_count(y, inv_d)                                    # (c, K)
-    prod = mm.montmul(y[:, None], w[None, :, :, None], q32[..., None],
-                      qneg[..., None])                            # (c, R, nd, K)
-    acc = mm.montsum(prod, q32, axis=2)
-    return mm.montsub(acc, mm.montmul(v[:, None], d, q32, qneg), q32)
 
 
 def moddown_finish_plain(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
@@ -140,7 +214,7 @@ def moddown_finish_plain(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
     out = []
     chunk = _PLAIN_MODDOWN_POLYS
     for s in range(0, x.shape[0], chunk):
-        conv = _moddown_conv(y_drop[s:s + chunk], w, d, inv_d, q32, qneg)
+        conv = _conv(y_drop[s:s + chunk], w, d, inv_d, q32, qneg)
         conv_eval = core_ntt.ntt_mont_raw(conv, psi_m, q32, qneg)
         diff = mm.montsub(x[s:s + chunk], conv_eval, q32)
         out.append(mm.montmul(diff, p_inv_m, q32, qneg))
@@ -155,19 +229,8 @@ def moddown_finish_split_plain(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32,
     through ``ntt_split_plain``'s cross stages, exchange and local stages,
     and the epilogue (x − conv)·P⁻¹ runs on each chunk."""
     from repro_torch.kernels import ntt as kntt
-    P, R, N = x.shape
-    nd = y_drop.shape[1]
-    kntt._split_dims(N, C)
-    r_blk = N // C // C
-    yv = y_drop.reshape(P, nd, C, C, r_blk)                       # [a, k, u]
-    conv = torch.empty((P, R, C, C, r_blk), dtype=torch.int32,
-                       device=x.device)
-    for k in range(C):                        # block k's slice, every a
-        ys = yv[:, :, :, k].reshape(P, nd, C * r_blk)
-        conv[:, :, :, k] = _moddown_conv(ys, w, d, inv_d, q32, qneg
-                                         ).reshape(P, R, C, r_blk)
-    conv_eval = kntt.ntt_split_plain(conv.reshape(P, R, N), psi_m, q32, qneg,
-                                     C)
+    conv_eval = kntt.ntt_split_plain(_conv_split(y_drop, w, d, inv_d, q32,
+                                                 qneg, C), psi_m, q32, qneg, C)
     return mm.montmul(mm.montsub(x, conv_eval, q32), p_inv_m, q32, qneg)
 
 
@@ -180,27 +243,68 @@ LAUNCHES = {"intt_scale": 0, "hoist_db": 0, "moddown_finish": 0,
             "baseconv_ntt": 0}
 
 
-def _logn(N: int, max_logn: int = MAX_LOGN) -> int:
+def _logn(N: int) -> int:
     logN = N.bit_length() - 1
     if N != 1 << logN or logN < 1:
         raise ValueError(f"ring dimension {N} is not a power of two")
-    if logN > max_logn:
+    if logN > SPLIT_MAX_LOGN:
         raise ValueError(
-            f"N = 2^{logN}: one u32 row is {4 * N // 1024} KiB; this kernel "
-            f"supports N <= 2^{max_logn} (intt_scale, hoist_db and "
-            f"baseconv_ntt hold a row in one block's shared memory, at most "
-            f"2^{MAX_LOGN}; ntt, intt and moddown_finish split a row over a "
-            f"cluster, up to 2^{SPLIT_MAX_LOGN})")
+            f"N = 2^{logN}: the kernels split a row over a thread-block "
+            f"cluster of at most 16 blocks, chunks of at most 2^13 values, "
+            f"so they take N <= 2^{SPLIT_MAX_LOGN}")
     return logN
 
 
-def _launch_intt_scale(x, x_bstride, B, R, logN, psii_m, ninv_m, scale_m,
-                       q32, qneg):
-    """Raw launch over B batches of R rows (input batch stride in elements);
-    returns a fresh contiguous (B, R, N) output."""
-    out = torch.empty((B, R, 1 << logN), dtype=torch.int32, device=x.device)
-    build.call("intt_scale_launch", x, x_bstride, out, B, R, logN, psii_m,
-               ninv_m, scale_m, q32, qneg)
+def _logc(rows: int, N: int) -> int:
+    """log2 of the cluster that transforms each of a launch's ``rows``
+    rows of N (``kernels/ntt.py`` ``cluster_size``, as ``ntt``'s)."""
+    from repro_torch.kernels import ntt as kntt
+    return kntt.cluster_size(rows, N).bit_length() - 1
+
+
+def _fold(ninv_m, scale_m, q32, qneg):
+    """The (R, 1) epilogue constants montmul(N⁻¹, scale) of the
+    ``intt_scale`` kernel, computed on the host once per table and kept
+    on the scale table (the engine's tables come back on every call)."""
+    got = getattr(scale_m, "_fame_fold", None)
+    if got is None or got[0] is not ninv_m:
+        f = mm.montmul(*(t.cpu() for t in (ninv_m, scale_m, q32, qneg)))
+        got = (ninv_m, f.to(scale_m.device))
+        scale_m._fame_fold = got
+    return got[1]
+
+
+def _check_rows(rows, R: int, nrows: int):
+    """A row table: R int64 indices below ``nrows``, on the device; the
+    bounds are read once per table."""
+    build.check_tables("intt_scale", rows.device, (rows, (R,)),
+                       dtype=torch.int64)
+    if getattr(rows, "_fame_rows", None) != nrows:
+        if not 0 <= int(rows.min()) and int(rows.max()) < nrows:
+            raise ValueError(f"intt_scale: row table outside {nrows} rows")
+        rows._fame_rows = nrows
+
+
+def _launch_intt_scale(x, rows, R, psii_m, ninv_m, scale_m, q32, qneg):
+    """Raw launch over x (B, *, N) with contiguous rows: output row r reads
+    x row ``rows[r]`` (None: row r) of each batch element.  Checks the
+    operands; returns a fresh contiguous (B, R, N) output."""
+    B, nrows, N = x.shape
+    logN = _logn(N)
+    build.check("intt_scale", x, torch.int32, rows_contiguous=True)
+    build.check_tables("intt_scale", x.device, (psii_m, (R, N)),
+                       (ninv_m, (R, 1)), (scale_m, (R, 1)), (q32, (R, 1)),
+                       (qneg, (R, 1)))
+    if rows is None:
+        if R > nrows:
+            raise ValueError(f"intt_scale: {R} rows of {nrows}")
+    else:
+        _check_rows(rows, R, nrows)
+    out = torch.empty((B, R, N), dtype=torch.int32, device=x.device)
+    build.call("intt_scale_launch", x, x.stride(0), rows, out, B, R, logN,
+               _logc(B * R, N), psii_m, _fold(ninv_m, scale_m, q32, qneg),
+               q32, qneg)
+    LAUNCHES["intt_scale"] += 1
     return out
 
 
@@ -208,16 +312,17 @@ def intt_scale_cuda(x, psii_m, ninv_m, scale_m, q32, qneg):
     """x: (R, N) or (B, R, N) int32 on CUDA, rows contiguous."""
     squeeze = x.dim() == 2
     x3 = x[None] if squeeze else x
-    B, R, N = x3.shape
-    logN = _logn(N)
-    build.check("intt_scale", x3, torch.int32, rows_contiguous=True)
-    build.check_tables("intt_scale", x.device, (psii_m, (R, N)),
-                       (ninv_m, (R, 1)), (scale_m, (R, 1)), (q32, (R, 1)),
-                       (qneg, (R, 1)))
-    out = _launch_intt_scale(x3, x3.stride(0), B, R, logN, psii_m, ninv_m,
-                             scale_m, q32, qneg)
-    LAUNCHES["intt_scale"] += 1
+    out = _launch_intt_scale(x3, None, x3.shape[1], psii_m, ninv_m, scale_m,
+                             q32, qneg)
     return out[0] if squeeze else out
+
+
+def intt_scale_rows_cuda(x, rows, psii_m, ninv_m, scale_m, q32, qneg):
+    """``intt_scale`` of the rows ``rows`` (R int64) of x (B, *, N): the
+    kernel reads them in place, as ``intt_scale_cuda(x[:, rows], …)``
+    would after a gather."""
+    return _launch_intt_scale(x, rows, rows.shape[0], psii_m, ninv_m,
+                              scale_m, q32, qneg)
 
 
 def hoist_db_cuda(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
@@ -238,12 +343,16 @@ def hoist_db_cuda(c1s, psii_m, ninv_m, hat_m, q_pad, qneg_pad, w, d, inv_d,
                        (qneg_full, (M, 1)), (mask, (nbeta, M, 1)))
     build.check_tables("hoist_db", c1s.device, (inv_d, (nbeta, alpha, 1)),
                        dtype=torch.float64)
-    # digit rows are c1s rows: the iNTT runs over the nq real ones only
-    y = _launch_intt_scale(c1s, c1s.stride(0), B, nq, logN, psii_m, ninv_m,
-                           hat_m, q_pad, qneg_pad)
+    # digit rows are c1s rows: the iNTT runs over the nq real ones only (a
+    # launch of the intt_scale kernel, counted as hoist_db's)
+    y = torch.empty((B, nq, N), dtype=torch.int32, device=c1s.device)
+    build.call("intt_scale_launch", c1s, c1s.stride(0), None, y, B, nq, logN,
+               _logc(B * nq, N), psii_m, _fold(ninv_m, hat_m, q_pad,
+                                               qneg_pad), q_pad, qneg_pad)
     out = torch.empty((B, nbeta, M, N), dtype=torch.int32, device=c1s.device)
     build.call("hoist_bc_ntt_launch", y, c1s, c1s.stride(0), out, B, nbeta,
-               alpha, nq, M, logN, w, d, inv_d, psi_m, q_full, qneg_full, mask)
+               alpha, nq, M, logN, _logc(B * nbeta * M, N), w, d, inv_d,
+               psi_m, q_full, qneg_full, mask)
     LAUNCHES["hoist_db"] += 1
     return out
 
@@ -266,7 +375,7 @@ def baseconv_ntt_cuda(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask):
                        dtype=torch.float64)
     out = torch.empty((nbeta, M, N), dtype=torch.int32, device=y.device)
     build.call("baseconv_ntt_launch", y, passthrough, out, nbeta, alpha, M,
-               logN, w, d, inv_d, psi_m, q32, qneg, mask)
+               logN, _logc(nbeta * M, N), w, d, inv_d, psi_m, q32, qneg, mask)
     LAUNCHES[name] += 1
     return out
 
@@ -276,7 +385,7 @@ def moddown_finish_cuda(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
     (P, nd, N) contiguous."""
     P, R, N = x.shape
     nd = y_drop.shape[1]
-    logN = _logn(N, SPLIT_MAX_LOGN)
+    logN = _logn(N)
     build.check("moddown_finish", x, torch.int32, rows_contiguous=True)
     build.check("moddown_finish", y_drop, torch.int32)
     if y_drop.shape != (P, nd, N):
@@ -289,11 +398,9 @@ def moddown_finish_cuda(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
                        dtype=torch.float64)
     # the cluster that ntt would give as many rows: C = 8 at the Set-B
     # shapes, the fastest of 4, 8 and 16 there (PERF.md §6)
-    from repro_torch.kernels import ntt as kntt
-    logc = kntt.cluster_size(P * R, N).bit_length() - 1
     out = torch.empty((P, R, N), dtype=torch.int32, device=x.device)
     build.call("moddown_finish_launch", x, x.stride(0), y_drop, out, P, R, nd,
-               logN, logc, w, d, inv_d, psi_m, p_inv_m, q32, qneg)
+               logN, _logc(P * R, N), w, d, inv_d, psi_m, p_inv_m, q32, qneg)
     LAUNCHES["moddown_finish"] += 1
     return out
 

@@ -33,10 +33,10 @@ P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: stream pointer follows)
 SIGNATURES = {
     "intt_scale_launch": ("intt_scale",
-                          [P, LL, P, I, I, I, P, P, P, P, P]),
+                          [P, LL, P, P, I, I, I, I, P, P, P, P]),
     "hoist_bc_ntt_launch": ("hoist",
-                            [P, P, LL, P, I, I, I, I, I, I, P, P, P, P, P, P,
-                             P]),
+                            [P, P, LL, P, I, I, I, I, I, I, I, P, P, P, P, P,
+                             P, P]),
     "moddown_finish_launch": ("moddown",
                               [P, LL, P, P, I, I, I, I, I, P, P, P, P, P, P,
                                P]),
@@ -47,7 +47,7 @@ SIGNATURES = {
                          [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                           P]),
     "baseconv_ntt_launch": ("hoist",
-                            [P, P, P, I, I, I, I, P, P, P, P, P, P, P]),
+                            [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P]),
     "ntt_launch": ("ntt", [P, LL, P, I, I, I, I, P, P, P]),
     "intt_launch": ("ntt", [P, LL, P, I, I, I, I, P, P, P, P]),
     "fused_hlt_batched_launch": ("fused_hlt",

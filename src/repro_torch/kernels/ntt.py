@@ -24,7 +24,6 @@ import torch
 from repro_torch.core import modmath as mm
 from repro_torch.core import ntt as core_ntt
 from repro_torch.kernels import build
-from repro_torch.kernels.basechange import SPLIT_MAX_LOGN as MAX_LOGN
 from repro_torch.kernels.basechange import _logn
 
 #: launches per kernel, counted by the wrapper right where it launches
@@ -50,8 +49,8 @@ def cluster_size(rows: int, N: int) -> int:
     """Blocks C of the cluster that transforms one row of a launch over
     ``rows`` (batch × limb) rows: chunks N/C of at least ``MIN_CHUNK``
     values (C = 1 below 2^11), 16 while one cluster a row fits the card's
-    SMs, else 8 (the portable cluster size).  ``moddown_finish`` spreads
-    its (polynomial, target row) rows the same way."""
+    SMs, else 8 (the portable cluster size).  The kernels of
+    ``kernels/basechange.py`` spread their rows the same way."""
     cmax = min(16, max(1, N // MIN_CHUNK))
     if cmax == 16 and rows * 16 <= SMS:
         return 16
@@ -169,7 +168,7 @@ def _launch(name, fn, x, *tables):
     tables: the (M, N) twiddles, then (M, 1) constants."""
     build.check(name, x, torch.int32, rows_contiguous=True)
     B, M, N = x.shape
-    logN = _logn(N, MAX_LOGN)
+    logN = _logn(N)
     _check_tables(name, x.device, (tables[0], (M, N)),
                   *[(t, (M, 1)) for t in tables[1:]])
     logc = cluster_size(B * M, N).bit_length() - 1

@@ -134,10 +134,15 @@ def hoist_fused_db(c1s, t: dict):
 def moddown_fused(x_full, t: dict):
     """Merged ModDown+Rescale over a batch: x_full (P, nq+k, N) eval-domain
     extended limbs at level ℓ -> (P, ℓ, N) over Q_{ℓ-1}; one intt_scale and
-    one moddown_finish launch for all P polynomials."""
-    x_drop = x_full[:, t["drop_idx"]]
-    y = intt_scale(x_drop, t["psii_drop"], t["ninv_drop"], t["hat_drop"],
-                   t["q_drop"], t["qneg_drop"])
+    one moddown_finish launch for all P polynomials.  On CUDA the
+    intt_scale kernel reads the drop rows of x_full in place through the
+    row table ``drop_idx``; the plain version gathers them."""
+    tabs = (t["psii_drop"], t["ninv_drop"], t["hat_drop"], t["q_drop"],
+            t["qneg_drop"])
+    if x_full.is_cuda:
+        y = _bc.intt_scale_rows_cuda(x_full, t["drop_idx"], *tabs)
+    else:
+        y = _bc.intt_scale_plain(x_full[:, t["drop_idx"]], *tabs)
     return moddown_finish(x_full[:, :t["n_out"]], y, t["w"], t["d"],
                           t["inv_d"], t["psi_out"], t["p_inv"], t["q_out"],
                           t["qneg_out"])

@@ -200,12 +200,12 @@ def test_fused_hlt_indexed_matches_reference(engs):
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_large_rings():
     """A wrapper's kernel path never takes a CPU tensor (no silent plain
-    fallback inside the CUDA wrapper), and N > 2^15 raises rather than
-    falling back."""
+    fallback inside the CUDA wrapper), and N > 2^16, beyond what a
+    cluster of blocks splits, raises rather than falling back."""
     x = torch.zeros((1, 64), dtype=torch.int32)
     col = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         bc.intt_scale_cuda(x, x, col, col, col, col)
-    with pytest.raises(ValueError, match="2\\^16"):
-        bc.intt_scale_cuda(torch.zeros((1, 1 << 16), dtype=torch.int32),
+    with pytest.raises(ValueError, match="2\\^17"):
+        bc.intt_scale_cuda(torch.zeros((1, 1 << 17), dtype=torch.int32),
                            x, col, col, col, col)

@@ -11,6 +11,8 @@ the butterfly network is the same function of any twiddle table) and to
 the reference's Pallas ``moddown_finish`` in interpret mode at logN 6 and 7
 on both verify sets (tolerance: none).  The CUDA kernel is held against
 the plain version on the card by ``chip_smoke.py``."""
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -120,11 +122,28 @@ def test_cluster_size_for_set_b_shapes(P, R, logN, want):
 
 
 def test_moddown_takes_logn16_and_names_the_one_block_kernels():
-    """moddown_finish splits its row over a cluster up to 2^16; the kernels
-    that still hold a row in one block stop at 2^15 and say which."""
-    assert bc._logn(1 << 16, bc.SPLIT_MAX_LOGN) == 16
+    """Every row kernel splits its row over a cluster, so each takes 2^16
+    and stops at 2^17 with the one limit's message; none holds a row in
+    one block any more."""
+    assert bc._logn(1 << 16) == bc.SPLIT_MAX_LOGN == 16
     with pytest.raises(ValueError, match="2\\^17"):
-        bc._logn(1 << 17, bc.SPLIT_MAX_LOGN)
-    with pytest.raises(ValueError, match="intt_scale, hoist_db and "
-                                         "baseconv_ntt hold a row"):
-        bc._logn(1 << 16)
+        bc._logn(1 << 17)
+    x = torch.zeros((1, 1, 1 << 17), dtype=torch.int32)
+    col = torch.zeros((1, 1), dtype=torch.int32)
+    for call in (lambda: bc.intt_scale_cuda(x, x[0], col, col, col, col),
+                 lambda: bc.moddown_finish_cuda(x, x, col, col, col, x[0],
+                                                col, col, col),
+                 lambda: bc.baseconv_ntt_cuda(x[0], col[None], col[None],
+                                              col[None].double(), x[0], col,
+                                              col, x[0], col[None]),
+                 lambda: bc.hoist_db_cuda(x, x[0], col, col, col, col,
+                                          col[None], col[None],
+                                          col[None].double(), x[0], col, col,
+                                          col[None], nbeta=1, alpha=1)):
+        with pytest.raises(ValueError, match="N <= 2\\^16"):
+            call()
+    src = (pathlib.Path(__file__).resolve().parents[1]
+           / "src/repro_torch/csrc/common.cuh").read_text()
+    for gone in ("block_ntt_fwd", "block_intt", "row_threads",
+                 "reserve_row_smem"):
+        assert gone not in src

@@ -101,8 +101,8 @@ def test_split_refuses_clusters_larger_than_a_chunk_and_large_rings():
         kntt.intt_split_plain(x, x[0], col, col, col, 3)
     big = torch.zeros((1, 1, 1 << 17), dtype=torch.int32)
     with pytest.raises(ValueError, match="2\\^17"):
-        kntt._logn(big.shape[-1], kntt.MAX_LOGN)
-    assert kntt._logn(1 << 16, kntt.MAX_LOGN) == 16
+        kntt._logn(big.shape[-1])
+    assert kntt._logn(1 << 16) == 16
 
 
 def test_split_schedule_on_a_row_slice_batch_stride():
