@@ -70,7 +70,23 @@ Phases, each printing its lines before the last:
    kernels' BaseConv epsilon over Steps 1–2 (``fused_eps``) array-equal to
    the batched ``pallas`` hemm, and with the reference's own chain
    epsilon its differing residues counted and its decrypted output within
-   0.05 of the ``pallas`` hemm's; stage times printed for each;
+   0.05 of the ``pallas`` hemm's; stage times printed for each.  And the
+   cost model's compile of the same product, ``compile_hemm(ctx, plan)``
+   with no schedule and no chunk: it must pick ``"pallas"``, batched, with
+   d_pad = d, and be array-equal to the explicit program;
+3b. blockmm — Set-B block MM through ``SecureMatmulEngine(SET_B,
+   tile=64)`` (no schedule, no chunk) on ``CkksEngine(SET_B,
+   datapath="pallas")``: A (100×120) · B (120×70), a ragged (2, 2, 2)
+   grid of 64×64 tiles, l = 64, 512 products.  The cost model must pick
+   ``"pallas"`` with d_pad = d and the ``BlockMMPlan`` report 2 HLT
+   launches.  The counted call (launches as ``expected_launches`` for 512
+   products, gather paths as ``tile_sources`` predicts) and a timed call
+   through ``stage_hook``; the sequential loop (``batched=False``, 8
+   unbatched tile hemms on ``fused_hlt`` / ``baseconv_ntt``, its launches
+   counted too) array-equal to the batched output; the four-sign check
+   (within 0.05 of A·B) with the raw error; one call with ``a_slots``
+   aliasing a repeated A tile object array-equal to the unhinted call,
+   its plan one hoisting product a stage lighter; peak device memory;
 3c. set-c — Set-C (logN 16, L 31, k 12, β 3, unreduced), ``plan_hemm(32,
    32, 32)`` on ``CkksEngine(SET_C, datapath="pallas")``: keygen, the
    batched counted call (launches as ``expected_launches``, the gather
@@ -83,7 +99,9 @@ Phases, each printing its lines before the last:
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
    ``HEContext`` datapaths; every c0 and c1 array-equal to its ``cpu``
-   twin, and all but ``baseline``'s array-equal to each other.
+   twin, and all but ``baseline``'s array-equal to each other; then the
+   ``fame-m-rt`` block MM (tile 4, A 6×5 · B 5×7, a (2, 2, 2) grid),
+   batched and looped, on ``cuda`` and on ``cpu``, all array-equal.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
@@ -1309,7 +1327,7 @@ def program_paths(prog) -> list:
     the sum over its HLT launches (Step 1 and Step 2, batched or
     single) of ``expected_paths`` on each launch's operands."""
     eng = prog.ctx.eng
-    runs = ((prog._step1, prog._step2) if prog.plan.batched
+    runs = ((prog._step1, prog._step2) if getattr(prog.plan, "batched", True)
             else (*prog._step1, *prog._step2))
     total = [0, 0, 0]
     for run in runs:
@@ -1326,9 +1344,10 @@ def program_paths(prog) -> list:
 def counted_call(ctx, prog, ctA, ctB, batched: bool, l: int,
                  tag: str = "main"):
     """The path's counted call: every launch counter zeroed just before it
-    and read just after, held against ``expected_launches``; the fused HLT
-    kernels' gather paths counted on the card and held against
-    ``program_paths``."""
+    and read just after, held against ``expected_launches`` for ``l``
+    products (a block MM: its tile products, with ``ctA``/``ctB`` its tile
+    grids); the fused HLT kernels' gather paths counted on the card and
+    held against ``program_paths``."""
     from repro_torch.kernels import ops
     h0 = ctx.counters["hlt_launches"]
     ops.reset_launch_counts()
@@ -1443,6 +1462,26 @@ def phase_main(params, shape):
     if not rerr.max() <= TOL:
         raise AssertionError(f"rounded-division product off by {rerr.max()}")
 
+    # the cost model's compile of the same product: no schedule, no chunk
+    t0 = time.perf_counter()
+    cprog = compile_hemm(ctx, plan)
+    torch.cuda.synchronize()
+    cms = time.perf_counter() - t0
+    cp = cprog.plan
+    if (cp.schedule, cp.batched) != ("pallas", True) or any(
+            st.d_pad != max(st.d) for st in (cp.step1, cp.step2)):
+        raise AssertionError(f"cost-model hemm compile: {cp.schedule}, "
+                             f"batched {cp.batched}, d_pad "
+                             f"{cp.step1.d_pad}/{cp.step2.d_pad}")
+    ctD, st = staged_call(cprog, ctA, ctB)
+    assert_ct_equal(ctC, ctD, "cost-model hemm vs the explicit program")
+    log(f"[main] compile_hemm(ctx, plan) with no schedule or chunk: "
+        f"\"{cp.schedule}\", batched, step1 d={max(cp.step1.d)} d_pad="
+        f"{cp.step1.d_pad} chunk {cp.step1.chunk}, step2 d_pad="
+        f"{cp.step2.d_pad}; compiled in {cms:.1f} s; c0, c1 array-equal to "
+        f"the explicit program's; stage ms {fmt(st)}")
+    del cprog, ctD
+
     # the unbatched program: 2 + 2·l single HLTs on the same keys and inputs
     del prog, ctX, ctR
     ctx.invalidate()
@@ -1480,19 +1519,23 @@ def four_signs(ctx, prog, A, B, ctA, ctB, ctC, rng, note: str,
     bias term in C(A,B) - C(-A,B) - C(A,-B) + C(-A,-B) = 4·A·B, which
     must agree within the reference tests' tolerance; their mean is the
     program's fixed (data-independent) error."""
-    import numpy as np
     from repro_torch.core.hemm import decrypt_matrix, encrypt_matrix
     m, n = prog.mm_plan.m, prog.mm_plan.n
     ctnA = encrypt_matrix(ctx.eng, ctx.keys, -A, rng)
     ctnB = encrypt_matrix(ctx.eng, ctx.keys, -B, rng)
     outs = {"++": ctC, "-+": prog(ctnA, ctB), "+-": prog(ctA, ctnB),
             "--": prog(ctnA, ctnB)}
-    dec = {}
-    for k, ct in outs.items():
-        v = decrypt_matrix(ctx.eng, ctx.keys, ct, m, n)
-        if v.shape != (m, n) or not np.all(np.isfinite(v)):
+    return sign_check({k: decrypt_matrix(ctx.eng, ctx.keys, ct, m, n)
+                       for k, ct in outs.items()}, A, B, note, tag)
+
+
+def sign_check(dec, A, B, note: str, tag: str):
+    """``four_signs``' check on the decrypted products ``dec`` of (A, B),
+    (−A, B), (A, −B), (−A, −B) (keys "++", "-+", "+-", "--")."""
+    import numpy as np
+    for k, v in dec.items():
+        if v.shape != (A.shape[0], B.shape[1]) or not np.all(np.isfinite(v)):
             raise AssertionError(f"decrypted C({k}) is not finite / mis-shaped")
-        dec[k] = v
     raw = np.abs(dec["++"] - A @ B)
     fixed = (dec["++"] + dec["-+"] + dec["+-"] + dec["--"]) / 4
     prod = (dec["++"] - dec["-+"] - dec["+-"] + dec["--"]) / 4
@@ -1618,7 +1661,8 @@ def phase_schedules(ctx, plan, ctA, ctB, ctC):
 
     # the whole hemm with no kernel: "mo" on an "xla" engine and context
     xctx = HEContext(eng, keys, datapath="xla")
-    prog = compile_hemm(xctx, plan, schedule="mo", rotation_chunk=8)
+    prog = compile_hemm(xctx, plan, schedule="mo", rotation_chunk=8,
+                        batched=True)
     runs = {}
 
     def counted_mo(on_stage=None):
@@ -1660,6 +1704,132 @@ def phase_schedules(ctx, plan, ctA, ctB, ctC):
         f"(limit {TOL}); stage ms {fmt(st)}")
     if not (ctM.level == ctC.level and ddiff <= TOL):
         raise AssertionError(f"mo hemm off the pallas hemm by {ddiff}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: block MM over a tile grid at Set-B
+# ---------------------------------------------------------------------------
+
+
+def assert_grid_equal(a, b, what):
+    for i, (ra, rb) in enumerate(zip(a, b, strict=True)):
+        for j, (x, y) in enumerate(zip(ra, rb, strict=True)):
+            assert_ct_equal(x, y, f"{what}, tile ({i}, {j})")
+
+
+def phase_blockmm(params) -> dict:
+    """Set-B block MM through ``SecureMatmulEngine`` (tile ``BLOCKMM_TILE``,
+    no schedule, no chunk) on a ``"pallas"`` engine: A·B of the shapes
+    ``BLOCKMM_SHAPES``, every dimension off the tile.  Checks the cost
+    model's pick, the launches and gather paths of the counted call, the
+    sequential loop against the batched program, the four-sign product and
+    the aliasing hint; prints stage times and peak memory.  Returns the
+    counted call's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import HEContext, compile_blockmm
+    from repro_torch.kernels import ops
+    from repro_torch.secure import SecureMatmulEngine
+
+    (m, l), (_, n) = BLOCKMM_SHAPES
+    rng = np.random.default_rng(20262)
+    t0 = time.perf_counter()
+    engine = SecureMatmulEngine(params, tile=BLOCKMM_TILE, ctx=HEContext(
+        CkksEngine(params, datapath="pallas")))
+    ctx, plan = engine.ctx, engine._plan
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine.keygen(rng)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    A = rng.uniform(-1, 1, (m, l))
+    B = rng.uniform(-1, 1, (l, n))
+    At, Bt = engine.encrypt_tiles(A, rng), engine.encrypt_tiles(B, rng)
+    grid = (len(At), len(Bt), len(Bt[0]))
+    # the program SecureMatmulEngine.matmul_encrypted runs (memoized)
+    prog = compile_blockmm(ctx, plan, grid, level=At[0][0].level,
+                           schedule=engine.schedule,
+                           rotation_chunk=engine.rotation_chunk)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    bp = prog.plan
+    products = bp.l * grid[0] * grid[1] * grid[2]
+    log(f"[blockmm] {params.name} A {m}x{l} · B {l}x{n}, tile {plan.m} "
+        f"(grid {grid}, l = {bp.l}, {products} products) through "
+        f"SecureMatmulEngine on CkksEngine(datapath=\"pallas\"): plan "
+        f"{t1 - t0:.1f} s, keygen {t2 - t1:.1f} s ({len(ctx.keys.galois)} "
+        f"Galois keys), encrypt+compile {t3 - t2:.1f} s; arena "
+        f"{ctx.arena.nbytes / 1e9:.2f} GB; cost model: \"{engine.schedule}\""
+        f" / \"{bp.schedule}\", step1 B={bp.step1.batch} d="
+        f"{max(bp.step1.d)} d_pad={bp.step1.d_pad}, step2 B="
+        f"{bp.step2.batch} d={max(bp.step2.d)} d_pad={bp.step2.d_pad}; "
+        f"hlt_launches {bp.hlt_launches} (naive {bp.hlt_launches_naive})")
+    if (engine.schedule, bp.schedule, engine.batched) != ("pallas", "pallas",
+                                                          True):
+        raise AssertionError(f"block MM: the cost model picked "
+                             f"{engine.schedule} / {bp.schedule}")
+    if any(st.d_pad != max(st.d) for st in (bp.step1, bp.step2)):
+        raise AssertionError("block MM: the cost model padded d")
+    if grid != (2, 2, 2) or bp.hlt_launches != 2:
+        raise AssertionError(f"block MM: grid {grid}, {bp.hlt_launches} "
+                             f"HLT launches")
+
+    torch.cuda.reset_peak_memory_stats()
+    C, stages, launches = counted_call(ctx, prog, At, Bt, True, products,
+                                       "blockmm")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[blockmm] batched counted call: launches {json.dumps(launches)}; "
+        f"stage ms {fmt(stages)}; peak device memory {peak / 1e9:.2f} GB")
+    _, st = staged_call(prog, At, Bt)
+    log(f"[blockmm] batched timed call: stage ms {fmt(st)}")
+
+    # the sequential loop: one unbatched hemm per (i, j, k) tile pair
+    ops.reset_launch_counts()
+    loop, lms = synced_ms(lambda: engine.matmul_encrypted(At, Bt,
+                                                          batched=False))
+    llaunch = ops.launch_counts()
+    digits = len(ctx.eng.tools.digit_bases(bp.level - 2))
+    pairs = grid[0] * grid[1] * grid[2]
+    want = {k: pairs * v
+            for k, v in expected_launches(False, bp.l, digits).items()}
+    if llaunch != want:
+        raise AssertionError(f"block MM loop launched {llaunch}; expected "
+                             f"{want}")
+    assert_grid_equal(C, loop, "block MM loop vs batched")
+    log(f"[blockmm] sequential loop ({pairs} unbatched tile hemms): "
+        f"{lms:.3f} ms; launches {json.dumps(llaunch)}; every tile "
+        f"array-equal to the batched program's")
+    del loop
+
+    # the four sign combinations cancel the reference's rescale bias
+    nAt, nBt = engine.encrypt_tiles(-A, rng), engine.encrypt_tiles(-B, rng)
+    outs = {"++": C, "-+": prog(nAt, Bt), "+-": prog(At, nBt),
+            "--": prog(nAt, nBt)}
+    sign_check({k: engine.decrypt_tiles(v, m, n) for k, v in outs.items()},
+               A, B, f"output level {C[0][0].level}", "blockmm")
+    del outs, nAt, nBt
+
+    # a repeated A tile object, with and without the aliasing hint
+    At2 = [list(At[0]), [At[0][0], At[1][1]]]
+    hint = (0, 1, 0, 3)
+    want_out = prog(At2, Bt)
+    got = engine._matmul_encrypted_batched(At2, Bt, a_slots=hint)
+    assert_grid_equal(want_out, got, "block MM with a_slots vs without")
+    ap = compile_blockmm(ctx, plan, grid, level=At[0][0].level,
+                         schedule=engine.schedule,
+                         rotation_chunk=engine.rotation_chunk,
+                         a_slots=hint).plan
+    drops = (bp.step1.hoist_bytes - ap.step1.hoist_bytes,
+             bp.step2.hoist_bytes - ap.step2.hoist_bytes)
+    units = (bp.step1.hoist_bytes // 8, bp.step2.hoist_bytes // 8)
+    if drops != units:
+        raise AssertionError(f"a_slots: hoist bytes drop {drops}, one "
+                             f"hoisting product a stage is {units}")
+    log(f"[blockmm] a_slots={hint} on a repeated A tile: array-equal to the "
+        f"unhinted call; plan hoist_bytes {bp.hoist_bytes} -> "
+        f"{ap.hoist_bytes} (one hoisting product a stage: {units})")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1827,6 +1997,46 @@ def phase_cpu_vs_cuda():
             f"over {len(runs)} runs ({{cuda, cpu}} x {{pallas, xla}} engine x "
             f"{sorted({(k[3], k[2], k[4]) for k in runs})}); max|C - A·B| = "
             f"{want[4]:.3e}")
+    cpu_vs_cuda_blockmm(params)
+
+
+def cpu_vs_cuda_blockmm(params):
+    """The fame-m-rt block MM (tile 4, A 6×5 · B 5×7: a (2, 2, 2) grid)
+    through ``SecureMatmulEngine`` on a ``"pallas"`` engine, batched and
+    looped, on cuda and on cpu: every tile array-equal."""
+    import numpy as np
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import HEContext
+    from repro_torch.core.params import u32_numpy
+    from repro_torch.secure import SecureMatmulEngine
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(10)
+        engine = SecureMatmulEngine(params, tile=4, ctx=HEContext(
+            CkksEngine(params, device=dev, datapath="pallas")))
+        engine.keygen(rng)
+        A = rng.uniform(-1, 1, (6, 5))
+        B = rng.uniform(-1, 1, (5, 7))
+        At, Bt = engine.encrypt_tiles(A, rng), engine.encrypt_tiles(B, rng)
+        for batched in (True, False):
+            C = engine.matmul_encrypted(At, Bt, batched=batched)
+            err = float(np.abs(engine.decrypt_tiles(C, 6, 7) - A @ B).max())
+            if not err <= TOL:
+                raise AssertionError(f"fame-m-rt block MM {dev} batched "
+                                     f"{batched}: off A·B by {err}")
+            outs[dev, batched] = [(u32_numpy(ct.c0), u32_numpy(ct.c1),
+                                   ct.level, ct.scale)
+                                  for row in C for ct in row]
+    first, want = next(iter(outs.items()))
+    for key, got in outs.items():
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g[0], w[0])
+            np.testing.assert_array_equal(g[1], w[1])
+            if g[2:] != w[2:]:
+                raise AssertionError(f"fame-m-rt block MM {key} vs {first}")
+    log(f"[cpu-vs-cuda] fame-m-rt block MM 6x5 · 5x7 (tile 4, grid (2, 2, "
+        f"2)): c0, c1 array-equal over {sorted(outs)} (device, batched)")
 
 
 # ---------------------------------------------------------------------------
@@ -1860,6 +2070,12 @@ KERNELS = {
 #: the Set-C hemm: Table III's Set-C shape is 160³, whose ~636 rotation
 #: keys of ~69 MB alone exceed the card's 80 GB; 32³ takes ~124 (PERF.md §4)
 SET_C_SHAPE = (32, 32, 32)
+
+#: the Set-B block MM: 64 is the largest power-of-two tile that
+#: 3·tile² ≤ 2·slots admits at Set-B; both products' dimensions are off
+#: the tile, so the grid is (2, 2, 2)
+BLOCKMM_TILE = 64
+BLOCKMM_SHAPES = ((100, 120), (120, 70))
 
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
@@ -1917,6 +2133,12 @@ def main() -> int:
     t0 = time.perf_counter()
     gc.collect()        # the Set-B context and its programs form a cycle
     torch.cuda.empty_cache()
+    blockmm = phase_blockmm(SET_B)
+    log(f"[blockmm] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_set_c(SET_C_SHAPE)
     torch.cuda.empty_cache()
     log(f"[set-c] phase {time.perf_counter() - t0:.1f} s")
@@ -1925,8 +2147,9 @@ def main() -> int:
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [r.entry(launches[name])
-                                  for name, r in records.items()]}))
+    print(json.dumps({"kernels": [
+        dict(r.entry(launches[name]), launches_blockmm=blockmm[name])
+        for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

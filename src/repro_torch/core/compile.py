@@ -4,8 +4,10 @@ the single-device schedules of ``repro/core/compile.py``::
     ctx = HEContext(CkksEngine(params))           # CUDA unless told "cpu"
     plan = plan_hemm(ctx.eng, m, l, n)
     ctx.keygen(rng, rot_steps=plan.rot_steps)
-    prog = compile_hemm(ctx, plan, schedule="pallas", rotation_chunk=8)
+    prog = compile_hemm(ctx, plan)                # the cost model picks
     ctC = prog(ctA, ctB)
+    prog.plan                                     # schedule, chunk, d_pad,
+                                                  # byte and rotation counts
 
 ``schedule`` is one of ``SCHEDULES``: the fused ``"pallas"`` (the kernels)
 or a reference schedule ``"baseline"`` / ``"hoisted"`` / ``"mo"``
@@ -15,6 +17,8 @@ or a reference schedule ``"baseline"`` / ``"hoisted"`` / ``"mo"``
 schedule runs a batch as a loop of single executions.
 ``compile_hemm(..., batched=False)`` builds Algorithm 2 from 2 + 2·l
 single HLTs instead of two batched ones (``baseline`` is never batched).
+``compile_blockmm`` runs a whole (gm, gl, gn) grid of single-ciphertext
+tiles as two batched HLTs (``BlockMMProgram``).
 
 ``HEContext(datapath=)`` picks the lowering of the fused schedule's hoist
 and merged ModDown+Rescale: ``"pallas"`` (default) the fused kernels,
@@ -22,12 +26,16 @@ and merged ModDown+Rescale: ``"pallas"`` (default) the fused kernels,
 schedules always hoist by the chain; their ModDown follows the engine's
 datapath.  So on an ``"xla"`` engine, ``schedule="mo"`` launches no kernel.
 
-The port has no cost model yet, so ``schedule`` is explicit, and so is
-``rotation_chunk`` on ``"pallas"``: it sets the d-padding (d_pad is the
-next multiple of the chunk), while the CUDA kernel loops over all d_pad
-rotations itself.  On the reference schedules ``rotation_chunk=None``
-means d, as in the reference (``mo`` runs that many rotations a step).
-``HEContext`` owns all precompute: the operand arena (one slot per unique
+``schedule=None`` lets the cost model pick (``core/costmodel.py``
+``select_schedule``): ``"pallas"`` wherever the fused kernels take the
+parameter set, else ``"mo"``; ``plan.schedule`` records the pick.
+``rotation_chunk=None`` means chunk = d on every schedule: on
+``"pallas"`` the chunk only sets the d-padding (d_pad is the next
+multiple of the chunk) while the CUDA kernel loops over all d_pad
+rotations itself, so the cost model's pick is no padding; ``mo`` runs
+that many rotations a step.  The port has no verifier yet (ROADMAP queue
+1 item 7): no compile is checked before the memo store, and no memo key
+carries a verify mode.  ``HEContext`` owns all precompute: the operand arena (one slot per unique
 DiagSet at a compile point) and the compile memo; ``invalidate()`` (run by
 ``keygen``) drops both, and compiled objects from before refuse to run.
 """
@@ -40,6 +48,8 @@ import torch
 
 from repro_torch.core import hlt as hlt_mod
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
+from repro_torch.core.costmodel import (hlt_hoist_bytes, hlt_stage_costs,
+                                        pick_rotation_chunk, select_schedule)
 from repro_torch.core.hlt import (SCHEDULES, DiagSet, Hoisted, hoist,
                                   hoist_batched)
 from repro_torch.kernels import ops
@@ -168,16 +178,23 @@ def legacy_context(eng: CkksEngine, keys: Keys) -> HEContext:
     return ctx
 
 
-def _check_schedule(schedule: str, rotation_chunk) -> Optional[int]:
+def _check_schedule(schedule: str, rotation_chunk) -> None:
     if schedule not in SCHEDULES:
-        raise ValueError(f"schedule={schedule!r}: the port runs only "
-                         f"{SCHEDULES} (no cost model yet)")
-    if rotation_chunk is None and schedule != "pallas":
-        return None                     # the reference's rule: chunk = d
-    if not isinstance(rotation_chunk, int) or rotation_chunk < 1:
-        raise ValueError(f"rotation_chunk={rotation_chunk!r}: pass a "
-                         "positive int (no cost model yet)")
-    return rotation_chunk
+        raise ValueError(f"schedule={schedule!r}: the port runs "
+                         f"{SCHEDULES} on one device (no mesh, so no "
+                         f"\"sharded\")")
+    if rotation_chunk is not None and (not isinstance(rotation_chunk, int)
+                                       or rotation_chunk < 1):
+        raise ValueError(f"rotation_chunk={rotation_chunk!r}: a positive "
+                         "int, or None for the cost model's pick")
+
+
+def _canonical_slots(slots, n: int, what: str) -> tuple:
+    """An aliasing hint renumbered in first-appearance order."""
+    if len(slots) != n:
+        raise ValueError(f"{what} has {len(slots)} entries for {n} elements")
+    remap: dict = {}
+    return tuple(remap.setdefault(s, len(remap)) for s in slots)
 
 
 # ---------------------------------------------------------------------------
@@ -187,14 +204,26 @@ def _check_schedule(schedule: str, rotation_chunk) -> Optional[int]:
 
 @dataclasses.dataclass(frozen=True)
 class HLTPlan:
-    """One compiled HLT: ``batch`` is ``None`` for a single-ciphertext
-    compile, else the batch size.  ``datapath`` is the lowering of the hoist
-    and merged ModDown (the context's on ``"pallas"``, ``"xla"`` for the
-    reference schedules).  ``d`` holds each batch element's real diagonal
-    count and ``d_pad`` the common padded rotation count (a ``chunk``
-    multiple); ``diag_slots`` maps batch index -> unique diagonal-set slot;
+    """One compiled HLT, as the cost model and the compile sized it.
+
+    ``batch`` is ``None`` for a single-ciphertext compile, else the batch
+    size.  ``datapath`` is the lowering of the hoist and merged ModDown
+    (the context's on ``"pallas"``, ``"xla"`` for the reference
+    schedules).  ``d`` holds each batch element's real diagonal count and
+    ``d_pad`` the common padded rotation count (a ``chunk`` multiple);
+    ``rotations`` counts the real rotations an execution runs.
+
+    ``diag_slots`` maps batch index -> unique diagonal-set slot;
     ``ct_slots`` is the compile-time input-aliasing hint (``None`` =
-    unknown until call time)."""
+    unknown until call time) and ``n_ct_slots`` its unique count: the
+    hoisting products an execution stores.  ``operand_bytes`` /
+    ``operand_bytes_naive`` are the key and diagonal bytes after / before
+    the slot dedup, ``hoist_bytes`` / ``hoist_bytes_naive`` the same for
+    hoisting products (u32 words, ``costmodel.hlt_hoist_bytes``; 0 on
+    ``baseline``, which does not hoist).  ``stage_costs`` holds the
+    per-stage counts of ``costmodel.hlt_stage_costs``.
+    ``collective_bytes``, ``n_model`` and ``n_ct`` describe a mesh: 0, 1
+    and 1 on the port, which has none."""
 
     schedule: str
     datapath: str
@@ -206,9 +235,22 @@ class HLTPlan:
     d_pad: int
     diag_slots: tuple
     n_diag_slots: int
+    rotations: int
     operand_bytes: int
+    operand_bytes_naive: int
+    stage_costs: dict
+    collective_bytes: int = 0
+    n_model: int = 1
+    n_ct: int = 1
     ct_slots: Optional[tuple] = None
     n_ct_slots: Optional[int] = None
+    hoist_bytes: int = 0
+    hoist_bytes_naive: int = 0
+
+    @property
+    def dedup_factor(self) -> float:
+        """Key/diagonal operand-memory reduction of the slot dedup (≥ 1)."""
+        return self.operand_bytes_naive / max(1, self.operand_bytes)
 
 
 def _dedup_by_identity(items):
@@ -254,27 +296,36 @@ def _pallas_operands(ctx: HEContext, uniq, batch, level: int, nbeta: int,
 
 
 def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
-                level: int, schedule: str,
+                level: Optional[int] = None, schedule: Optional[str] = None,
                 rotation_chunk: Optional[int] = None,
                 ct_slots: Optional[Sequence[int]] = None) -> "CompiledHLT":
     """Compile an HLT.  ``diags``: one DiagSet (a single-ciphertext compile)
     or a sequence of DiagSets, one per batch element (duplicates share one
-    operand slot).  Memoized on the context."""
+    operand slot).  ``level`` defaults to the top; ``schedule=None`` and
+    ``rotation_chunk=None`` defer to the cost model.  ``ct_slots`` is an
+    optional aliasing hint (equal ids: the same ciphertext will be passed)
+    that sizes the plan's hoist accounting; execution re-derives the
+    aliasing from object identity.  Memoized on the context."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
-    chunk_req = _check_schedule(schedule, rotation_chunk)
     single = isinstance(diags, DiagSet)
     diag_list = [diags] if single else list(diags)
     batch = None if single else len(diag_list)
     if not diag_list:
         raise ValueError("batched compile needs at least one DiagSet")
     eng = ctx.eng
+    level = eng.params.L if level is None else level
     if ct_slots is not None:
-        if len(ct_slots) != len(diag_list):
-            raise ValueError(f"ct_slots has {len(ct_slots)} entries for "
-                             f"{len(diag_list)} DiagSets")
-        remap: dict = {}
-        ct_slots = tuple(remap.setdefault(s, len(remap)) for s in ct_slots)
+        ct_slots = _canonical_slots(ct_slots, len(diag_list), "ct_slots")
+    nbeta = len(eng.tools.digit_bases(level))
+    d_list = tuple(ds.d for ds in diag_list)
+    d_max = max(d_list)
+    if schedule is None:
+        schedule = select_schedule(
+            eng.params, nbeta=nbeta, d=d_max,
+            ctb=batch if batch is not None else 1,
+            n_uniq=None if ct_slots is None else len(set(ct_slots)))
+    _check_schedule(schedule, rotation_chunk)
     # the context's knob covers the fused schedule only; the reference
     # schedules always hoist by the chain
     datapath = ctx.datapath if schedule == "pallas" else "xla"
@@ -284,21 +335,34 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
     if hit is not None:
         return hit
 
-    nbeta = len(eng.tools.digit_bases(level))
-    d_list = tuple(ds.d for ds in diag_list)
-    d_max = max(d_list)
-    chunk = d_max if chunk_req is None else max(1, min(chunk_req, d_max))
+    chunk = (pick_rotation_chunk(d_max) if rotation_chunk is None
+             else min(rotation_chunk, d_max))
     d_pad = -(-d_max // chunk) * chunk
     uniq, slots = _dedup_by_identity(diag_list)
     operands = (_pallas_operands(ctx, uniq, batch, level, nbeta, d_pad)
                 if schedule == "pallas" else ())
     op_bytes = sum(t.numel() * t.element_size() for t in operands)
+    ctb = 1 if batch is None else batch
+    # one hoisting product per unique input (the hint; all distinct without
+    # one), none on baseline
+    m_ext = len(eng.tools.digit_bases(level)[0][2])
+    h_unit = int(hlt_hoist_bytes(eng.params, nbeta=nbeta, n_limbs_ext=m_ext))
+    n_ct_slots = None if ct_slots is None else len(set(ct_slots))
+    n_hoist = ctb if n_ct_slots is None else n_ct_slots
+    hoists = schedule != "baseline"
     plan = HLTPlan(
         schedule=schedule, datapath=datapath, level=level, batch=batch,
         nbeta=nbeta, chunk=chunk, d=d_list, d_pad=d_pad,
         diag_slots=tuple(slots), n_diag_slots=len(uniq),
-        operand_bytes=op_bytes, ct_slots=ct_slots,
-        n_ct_slots=None if ct_slots is None else len(set(ct_slots)))
+        rotations=sum(d_list), operand_bytes=op_bytes,
+        operand_bytes_naive=(op_bytes if batch is None else
+                             op_bytes // len(uniq) * len(diag_list)),
+        stage_costs=hlt_stage_costs(
+            eng.params, d=d_max, d_pad=d_pad, nbeta=nbeta, chunk=chunk,
+            n_limbs_ext=m_ext, ctb=ctb, n_hoist=n_hoist),
+        ct_slots=ct_slots, n_ct_slots=n_ct_slots,
+        hoist_bytes=h_unit * n_hoist if hoists else 0,
+        hoist_bytes_naive=h_unit * ctb if hoists else 0)
     run = CompiledHLT(ctx, plan, tuple(diag_list), operands)
     ctx._compiled[memo_key] = run
     return run
@@ -415,8 +479,28 @@ class CompiledHLT:
 # ---------------------------------------------------------------------------
 
 
+def _stage_sum(name: str) -> property:
+    return property(lambda plan: getattr(plan.step1, name)
+                    + getattr(plan.step2, name),
+                    doc=f"``HLTPlan.{name}`` summed over Step 1 and Step 2.")
+
+
+class _StageSums:
+    """A program plan's per-execution totals over its two HLT stages
+    ``step1`` and ``step2``: real rotations, key/diagonal operand bytes
+    and hoisting-product bytes after and before the slot dedup, and
+    predicted cross-device bytes (0: no mesh)."""
+
+    rotations = _stage_sum("rotations")
+    operand_bytes = _stage_sum("operand_bytes")
+    operand_bytes_naive = _stage_sum("operand_bytes_naive")
+    hoist_bytes = _stage_sum("hoist_bytes")
+    hoist_bytes_naive = _stage_sum("hoist_bytes_naive")
+    collective_bytes = _stage_sum("collective_bytes")
+
+
 @dataclasses.dataclass(frozen=True)
-class HEMMPlan:
+class HEMMPlan(_StageSums):
     """Compile summary for one HE MM: Step 1 (σ, τ) and Step 2 (2·l ε/ω),
     as one batched launch each (``batched``) or as 2 + 2·l single HLTs
     (``step1`` / ``step2`` then describe the first HLT of each step); the
@@ -430,6 +514,7 @@ class HEMMPlan:
     batched: bool
     step1: HLTPlan
     step2: HLTPlan
+    depth: int = 3
 
 
 class HEMMProgram:
@@ -495,17 +580,27 @@ class HEMMProgram:
         return acc
 
 
-def compile_hemm(ctx: HEContext, plan, *, schedule: str,
+def compile_hemm(ctx: HEContext, plan, *, schedule: Optional[str] = None,
                  rotation_chunk: Optional[int] = None,
                  level: Optional[int] = None,
-                 batched: bool = True) -> HEMMProgram:
+                 batched: Optional[bool] = None) -> HEMMProgram:
     """Compile Algorithm 2 for a HeMMPlan into a reusable HEMMProgram
-    (memoized on the context: same plan -> same program).  ``baseline``
-    is never batched: it has no hoisting product to share."""
+    (memoized on the context: same plan -> same program).
+    ``schedule=None`` / ``rotation_chunk=None`` defer to the cost model;
+    ``batched=None`` batches whenever the fused schedule is chosen.
+    ``baseline`` is never batched: it has no hoisting product to share."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
+    eng = ctx.eng
+    level = eng.params.L if level is None else level
+    if schedule is None:
+        # Step 2 (2·l HLTs off 2 unique inputs) dominates
+        schedule = select_schedule(
+            eng.params, nbeta=len(eng.tools.digit_bases(level)),
+            d=plan.ds_sigma.d, ctb=2 * plan.l, n_uniq=2)
     _check_schedule(schedule, rotation_chunk)
-    level = ctx.eng.params.L if level is None else level
+    if batched is None:
+        batched = schedule == "pallas"
     batched = bool(batched) and schedule != "baseline"
     memo_key = ("hemm", _StrongKey(plan), schedule, level, rotation_chunk,
                 batched)
@@ -531,6 +626,182 @@ def compile_hemm(ctx: HEContext, plan, *, schedule: str,
         ctx, plan,
         HEMMPlan(m=plan.m, l=plan.l, n=plan.n, schedule=schedule, level=level,
                  batched=batched, step1=s1_plan, step2=s2_plan),
+        step1, step2)
+    ctx._compiled[memo_key] = prog
+    return prog
+
+
+# ---------------------------------------------------------------------------
+# compile_blockmm -> BlockMMProgram (the whole tile grid as two HLT launches)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockMMPlan(_StageSums):
+    """Compile summary for one block HE MM over a (gm, gl, gn) grid of
+    single-ciphertext tiles, C[i][j] = Σ_k A[i][k]·B[k][j]; ``m``/``l``/
+    ``n`` are the tile's dimensions.  The grid runs as two slot-indexed HLT
+    launches: Step 1 transforms every A and B tile, Step 2 runs all
+    l·(gm·gl + gl·gn) ε/ω HLTs.  ``hlt_launches_naive`` is what a loop of
+    per-tile-pair HEMMPrograms would launch."""
+
+    m: int
+    l: int
+    n: int
+    grid: tuple                         # (gm, gl, gn)
+    schedule: str
+    level: int                          # input level; output is level - 3
+    step1: HLTPlan
+    step2: HLTPlan
+    depth: int = 3
+
+    @property
+    def hlt_launches(self) -> int:
+        """HLT launches per execution: always 2."""
+        return 2
+
+    @property
+    def hlt_launches_naive(self) -> int:
+        """Launches of a loop of batched per-tile-pair HEMMPrograms."""
+        gm, gl, gn = self.grid
+        return 2 * gm * gl * gn
+
+
+
+class BlockMMProgram:
+    """A compiled block HE MM: ``prog(A_tiles, B_tiles) -> C_tiles``.
+
+    ``A_tiles`` is a gm×gl and ``B_tiles`` a gl×gn list of lists of tile
+    ciphertexts (``SecureMatmulEngine.encrypt_tiles``); the result is the
+    gm×gn grid of accumulated products.  Repeated tile objects are
+    transformed once in Step 1 and hoisted once for Step 2: execution
+    re-derives the aliasing from object identity.  Then l·gm·gl·gn
+    mult → rescale products, summed per output tile."""
+
+    def __init__(self, ctx: HEContext, mm_plan, plan: BlockMMPlan,
+                 step1: CompiledHLT, step2: CompiledHLT):
+        self.ctx = ctx
+        self.mm_plan = mm_plan          # the per-tile HeMMPlan
+        self.plan = plan
+        self._step1 = step1
+        self._step2 = step2
+        self._gen = ctx._generation
+        #: optional callable(stage_name), as ``HEMMProgram.stage_hook``
+        self.stage_hook: Optional[Callable[[str], None]] = None
+
+    def _mark(self, name: str) -> None:
+        if self.stage_hook is not None:
+            self.stage_hook(name)
+
+    def __call__(self, A_tiles, B_tiles) -> list:
+        self.ctx._check_generation(self._gen)
+        self.ctx.counters["program_launches"] += 1
+        eng, keys, p = self.ctx.eng, self.ctx.keys, self.mm_plan
+        gm, gl, gn = self.plan.grid
+        if len(A_tiles) != gm or any(len(r) != gl for r in A_tiles):
+            raise ValueError(f"A tiles are not a {gm}x{gl} grid")
+        if len(B_tiles) != gl or any(len(r) != gn for r in B_tiles):
+            raise ValueError(f"B tiles are not a {gl}x{gn} grid")
+        ik = [(i, k) for i in range(gm) for k in range(gl)]
+        kj = [(k, j) for k in range(gl) for j in range(gn)]
+        nA, nB = len(ik), len(kj)
+        items1 = ([A_tiles[i][k] for i, k in ik]
+                  + [B_tiles[k][j] for k, j in kj])
+        self._mark("start")
+        # Step 1: every tile in one launch; the outputs of repeated input
+        # objects are aliased to one output object (they are bit-identical)
+        # so that Step 2 hoists each unique tile once
+        _, slots1 = _dedup_by_identity(items1)
+        outs = self._step1(items1)
+        first: dict = {}
+        outs = [outs[first.setdefault(s, b)] for b, s in enumerate(slots1)]
+        self._mark("step1")
+        if self.plan.schedule == "baseline":
+            hst = outs                          # no hoisting product
+        else:
+            uniq, uslots = _dedup_by_identity(outs)
+            hu = hoist_batched(eng, uniq, datapath=self.plan.step2.datapath)
+            hst = [hu[s] for s in uslots]
+        self._mark("step2_hoist")
+        # Step 2: all l·(nA + nB) ε/ω HLTs in one launch, k-major
+        items2 = ([hst[t] for _ in range(p.l) for t in range(nA)]
+                  + [hst[nA + t] for _ in range(p.l) for t in range(nB)])
+        res = self._step2(items2)
+        self._mark("step2")
+        acc: list = [[None] * gn for _ in range(gm)]
+        for kk in range(p.l):
+            Ak = {t: res[kk * nA + ti] for ti, t in enumerate(ik)}
+            Bk = {t: res[p.l * nA + kk * nB + ti] for ti, t in enumerate(kj)}
+            for i in range(gm):
+                for j in range(gn):
+                    for k in range(gl):
+                        prod = eng.rescale(eng.mult(Ak[i, k], Bk[k, j], keys))
+                        acc[i][j] = (prod if acc[i][j] is None
+                                     else eng.add(acc[i][j], prod))
+        self._mark("mult_rescale")
+        return acc
+
+
+def compile_blockmm(ctx: HEContext, plan, grid, *,
+                    level: Optional[int] = None,
+                    schedule: Optional[str] = None,
+                    rotation_chunk: Optional[int] = None,
+                    a_slots: Optional[Sequence[int]] = None,
+                    b_slots: Optional[Sequence[int]] = None
+                    ) -> BlockMMProgram:
+    """Compile a (gm, gl, gn) block MM over single-ciphertext tiles into a
+    reusable BlockMMProgram: the whole grid as two slot-indexed launches.
+
+    ``plan`` is the tile's HeMMPlan (``plan_hemm`` at the tile shape).
+    ``a_slots`` / ``b_slots`` are optional aliasing hints over the
+    row-major gm·gl A tiles / gl·gn B tiles (equal ids: the same tile
+    object will be passed); like ``compile_hlt``'s ``ct_slots`` they size
+    the plan's hoist accounting, and execution re-derives the aliasing
+    from identity.  ``schedule=None`` defers to the cost model with the
+    full Step-2 batch.  Memoized on the context."""
+    if ctx.keys is None:
+        raise RuntimeError("HEContext has no keys; call ctx.keygen()")
+    eng = ctx.eng
+    gm, gl, gn = grid = tuple(int(g) for g in grid)
+    if min(grid) < 1:
+        raise ValueError(f"grid {grid}: every dimension must be >= 1")
+    level = eng.params.L if level is None else level
+    nA, nB = gm * gl, gl * gn
+    a_slots = (tuple(range(nA)) if a_slots is None
+               else _canonical_slots(a_slots, nA, "a_slots"))
+    b_slots = (tuple(range(nB)) if b_slots is None
+               else _canonical_slots(b_slots, nB, "b_slots"))
+    off = max(a_slots) + 1
+    slots1 = a_slots + tuple(off + s for s in b_slots)
+    if schedule is None:
+        schedule = select_schedule(
+            eng.params, nbeta=len(eng.tools.digit_bases(level)),
+            d=plan.ds_sigma.d, ctb=plan.l * (nA + nB),
+            n_uniq=len(set(slots1)))
+    _check_schedule(schedule, rotation_chunk)
+    memo_key = ("blockmm", _StrongKey(plan), grid, schedule, level,
+                rotation_chunk, a_slots, b_slots)
+    hit = ctx._compiled.get(memo_key)
+    if hit is not None:
+        return hit
+    step1 = compile_hlt(
+        ctx, [plan.ds_sigma] * nA + [plan.ds_tau] * nB, level=level,
+        schedule=schedule, rotation_chunk=rotation_chunk, ct_slots=slots1)
+    # Step 2's batch is k-major: every A element of iteration k, then the
+    # next k; all B elements after all A (BlockMMProgram indexes by it)
+    step2_sets = ([plan.ds_eps[k] for k in range(plan.l) for _ in range(nA)]
+                  + [plan.ds_omega[k] for k in range(plan.l)
+                     for _ in range(nB)])
+    slots2 = (tuple(a_slots[t] for _ in range(plan.l) for t in range(nA))
+              + tuple(off + b_slots[t] for _ in range(plan.l)
+                      for t in range(nB)))
+    step2 = compile_hlt(ctx, step2_sets, level=level - 1, schedule=schedule,
+                        rotation_chunk=rotation_chunk, ct_slots=slots2)
+    prog = BlockMMProgram(
+        ctx, plan,
+        BlockMMPlan(m=plan.m, l=plan.l, n=plan.n, grid=grid,
+                    schedule=schedule, level=level,
+                    step1=step1.plan, step2=step2.plan),
         step1, step2)
     ctx._compiled[memo_key] = prog
     return prog

@@ -6,12 +6,20 @@ A_{m×l} × B_{l×n} = Σ_k (ε^k∘σ(A)) ⊙ (ω^k∘τ(B)), each transformati
 HLT over the column-major flattened matrix.  Every matrix has one entry
 per row, so the plan encodes its diagonals from the sparse form; the
 dense ``u_*`` functions build the same matrices as the reference.
-Execution is ``compile_hemm`` (core/compile.py).
+Execution is ``compile_hemm`` (core/compile.py); ``hemm()`` is the
+reference's deprecated one-call shim over it.
+
+The paper's §VI-A baselines run on the same engine: E2DM-S (pad to
+square), E2DM-R (pad to a rectangle-compatible shape) and Huang et al.
+(the general method, one KeySwitch a rotation) on the ``baseline``
+schedule, HEGMM-En (this module's method) on ``hoisted``
+(``baseline_spec``, ``hemm_baseline``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -70,6 +78,28 @@ def u_omega(k: int, m: int, l: int, n: int) -> np.ndarray:
     return _dense(omega_map(k, m, l, n))
 
 
+def diag_count_formulas(m: int, l: int, n: int) -> dict:
+    """Paper Eqs. 12–15: diagonals of σ, τ, each ε^k and each ω^k."""
+    return {
+        "sigma": 2 * min(m, l) - 1,
+        "tau": 2 * min(n, l) - 1,
+        "eps": n // l + 1,
+        "omega": 2 if m == l else n * (m // l + 2),
+    }
+
+
+def diag_count_exact(m: int, l: int, n: int) -> dict:
+    """Exact diagonal counts (per-k lists for ε/ω).  Eqs. 14–15 hold when
+    l | n (ε) and m = l or l | m (ω), and are off by a small constant
+    otherwise (4-3-5 has an ε^2 with 3 diagonals, not ⌊n/l⌋ + 1 = 2)."""
+    r = np.arange(m * n)
+    eps = [len(np.unique((k * m + r) % (m * l) - r)) for k in range(l)]
+    omg = [len(np.unique((k + r % m) % l + (r // m) * l - r))
+           for k in range(l)]
+    return {"sigma": 2 * min(m, l) - 1, "tau": 2 * min(n, l) - 1,
+            "eps": eps, "omega": omg}
+
+
 def min_logN(m: int, l: int, n: int) -> int:
     """Slots must hold both inputs AND the m×n output."""
     need = 2 * max(m * l, l * n, m * n)
@@ -124,3 +154,74 @@ def decrypt_matrix(eng: CkksEngine, keys: Keys, ct: Ciphertext,
                    m: int, n: int) -> np.ndarray:
     vals = eng.decrypt_decode(ct, keys, num=m * n).real
     return vals.reshape((m, n), order="F")
+
+
+def hemm(eng: CkksEngine, ctA: Ciphertext, ctB: Ciphertext, plan: HeMMPlan,
+         keys: Keys, schedule: Optional[str] = "mo",
+         rotation_chunk: Optional[int] = None,
+         batched: Optional[bool] = None) -> Ciphertext:
+    """Algorithm 2; consumes 3 levels.  DEPRECATED shim: compiles an
+    HEMMProgram on a pooled HEContext (``legacy_context``) and runs it."""
+    warnings.warn(
+        "hemm(..., schedule=...) is deprecated: build an HEContext and use "
+        "repro_torch.core.compile.compile_hemm instead.", DeprecationWarning,
+        stacklevel=2)
+    from repro_torch.core.compile import compile_hemm, legacy_context
+    prog = compile_hemm(legacy_context(eng, keys), plan, level=ctA.level,
+                        schedule=schedule, rotation_chunk=rotation_chunk,
+                        batched=batched)
+    return prog(ctA, ctB)
+
+
+# ---------------------------------------------------------------------------
+# baselines (§VI-A)
+# ---------------------------------------------------------------------------
+
+
+def _pad(X: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    out = np.zeros((rows, cols), dtype=np.float64)
+    out[: X.shape[0], : X.shape[1]] = X
+    return out
+
+
+@dataclasses.dataclass
+class BaselineRun:
+    """A baseline = (shape padding rule, HLT schedule)."""
+    name: str
+    pad_shape: tuple          # (m', l', n') actually multiplied
+    schedule: str
+
+
+def baseline_spec(name: str, m: int, l: int, n: int) -> BaselineRun:
+    if name == "e2dm-s":
+        s = max(m, l, n)
+        return BaselineRun(name, (s, s, s), "baseline")
+    if name == "e2dm-r":
+        if n <= l:
+            return BaselineRun(name, (m, l, l), "baseline")
+        if m <= l:
+            return BaselineRun(name, (l, l, n), "baseline")
+        s = max(m, l, n)
+        return BaselineRun(name, (s, s, s), "baseline")
+    if name == "huang":
+        return BaselineRun(name, (m, l, n), "baseline")   # general, unhoisted
+    if name == "hegmm-en":
+        return BaselineRun(name, (m, l, n), "hoisted")
+    raise ValueError(name)
+
+
+def hemm_baseline(eng: CkksEngine, name: str, A: np.ndarray, B: np.ndarray,
+                  keys_factory, rng: np.random.Generator):
+    """Run a baseline end to end: ``keys_factory(rot_steps) -> Keys`` (each
+    baseline gets exactly the rotation keys its plan needs).  Returns the
+    decrypted m×n product and the plan of the padded shape."""
+    from repro_torch.core.compile import HEContext, compile_hemm
+    m, l, n = A.shape[0], A.shape[1], B.shape[1]
+    spec = baseline_spec(name, m, l, n)
+    mp, lp, np_ = spec.pad_shape
+    plan = plan_hemm(eng, mp, lp, np_)
+    ctx = HEContext(eng, keys_factory(plan.rot_steps))
+    ctA = encrypt_matrix(eng, ctx.keys, _pad(A, mp, lp), rng)
+    ctB = encrypt_matrix(eng, ctx.keys, _pad(B, lp, np_), rng)
+    ct = compile_hemm(ctx, plan, schedule=spec.schedule)(ctA, ctB)
+    return decrypt_matrix(eng, ctx.keys, ct, mp, np_)[:m, :n], plan

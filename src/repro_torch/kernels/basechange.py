@@ -262,6 +262,31 @@ def _logc(rows: int, N: int) -> int:
     return kntt.cluster_size(rows, N).bit_length() - 1
 
 
+def split_smem_bytes(rows: int, N: int) -> int:
+    """Dynamic shared memory one block of a launch over ``rows`` rows of N
+    allocates: the padded chunk of n = N/C values and its twiddle table,
+    C = ``cluster_size(rows, N)`` (``common.cuh`` ``split_smem_bytes``).
+    Every kernel of this module launches this way."""
+    n = N >> _logc(rows, N)
+    return 4 * (2 * n + (n >> 5))
+
+
+def hoist_smem_bytes(B: int, nbeta: int, nq: int, M: int, N: int) -> int:
+    """Per-block footprint of ``hoist_db`` over B ciphertexts of nq limbs:
+    the larger of its two launches (the iNTT over B·nq rows, the BaseConv
+    + NTT over B·β·M rows).  It takes the place of the TPU kernel's
+    ``hoist_db_working_set_rows``."""
+    return max(split_smem_bytes(B * nq, N), split_smem_bytes(B * nbeta * M, N))
+
+
+def moddown_smem_bytes(P: int, nd: int, R: int, N: int) -> int:
+    """Per-block footprint of the merged ModDown over P polynomials: the
+    larger of ``intt_scale`` over the P·nd drop rows and ``moddown_finish``
+    over the P·R target rows.  It takes the place of the TPU kernel's
+    ``moddown_working_set_rows``."""
+    return max(split_smem_bytes(P * nd, N), split_smem_bytes(P * R, N))
+
+
 def _fold(ninv_m, scale_m, q32, qneg):
     """The (R, 1) epilogue constants montmul(N⁻¹, scale) of the
     ``intt_scale`` kernel, computed on the host once per table and kept

@@ -69,6 +69,22 @@ def limb_group(M: int, d: int) -> int:
     return min(2 if d > 4 else 1, M)
 
 
+def stage_rows(nbeta: int) -> int:
+    """Rows of T words one stage of the kernel's ring holds a limb: the β
+    digit rows and c0 of the source tile, the diagonal, the 2β key rows
+    (``csrc/fused_hlt.cu`` ``stage_rows``)."""
+    return 3 * nbeta + 2
+
+
+def smem_bytes(nbeta: int, N: int, g: int) -> int:
+    """Dynamic shared memory one block of the three kernels allocates: two
+    stages of g limbs × ``stage_rows(β)`` rows of T words, then three
+    permutation rows of T (``csrc/fused_hlt.cu`` ``launch``).  It takes
+    the place of the TPU kernel's VMEM ``working_set_rows``; it does not
+    depend on d, since a block loops over every rotation."""
+    return 4 * (2 * g * stage_rows(nbeta) + 3) * tile_size(N)
+
+
 def tile_sources(perms, T: int):
     """perms (..., N) -> (..., N/T) int64: for each aligned output tile of
     T positions, the one aligned source tile all its positions come from,

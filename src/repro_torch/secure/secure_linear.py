@@ -1,0 +1,171 @@
+"""Secure (HE) matmul: both the weights and the activations are CKKS
+ciphertexts and the server computes Y = X·W under encryption (paper §I) —
+counterpart of ``repro/secure/secure_linear.py``.
+
+* ``SecureMatmulEngine`` — block MM: an arbitrary (m × l)·(l × n) product
+  cut into tiles of one ciphertext each (paper §VI-D), padded with zeros
+  to tile multiples.  The batched path runs the whole tile grid through
+  ``compile_blockmm`` (two slot-indexed HLT launches); the sequential path
+  runs one unbatched Algorithm-2 program per (i, j, k) tile pair.
+* ``SecureLinear`` — y = x @ W with W encrypted once at construction.
+
+The engine owns an ``HEContext`` (``core/compile.py``), on CUDA unless
+``device="cpu"`` is asked for.  The cost model picks the schedule; the
+``schedule=`` knob is a deprecated override, as in the reference.  Not
+ported yet, and refused: ``mesh=`` (the multi-device schedule, ROADMAP
+queue 1 item 9) and ``SecureLinear(chain=...)`` (chains, item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
+from repro_torch.core.compile import HEContext, compile_blockmm, compile_hemm
+from repro_torch.core.costmodel import select_schedule
+from repro_torch.core.hemm import decrypt_matrix, encrypt_matrix, plan_hemm
+from repro_torch.core.params import HEParams
+
+
+@dataclasses.dataclass
+class SecureMatmulEngine:
+    params: HEParams
+    tile: int = 8                 # tile edge: 3·tile² ≤ 2·slots
+    schedule: Optional[str] = None   # DEPRECATED: None = the cost model's
+    rotation_chunk: Optional[int] = None
+    batched: Optional[bool] = None   # default: batched iff fused schedule
+    mesh: Optional[object] = None    # not ported: raises
+    ctx: Optional[HEContext] = None  # an externally owned context
+    device: Optional[object] = None  # of the engine built when ctx is None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "SecureMatmulEngine(mesh=...): the multi-device schedule is "
+                "not ported yet (ROADMAP queue 1 item 9)")
+        if self.ctx is None:
+            self.ctx = HEContext(CkksEngine(self.params, device=self.device))
+        elif self.ctx.eng.params != self.params:
+            raise ValueError("the injected HEContext was built for other "
+                             "HE parameters")
+        self.eng = self.ctx.eng
+        if 3 * self.tile * self.tile > 2 * self.eng.params.slots:
+            raise ValueError(f"tile {self.tile}: 3·tile² exceeds 2·slots = "
+                             f"{2 * self.eng.params.slots}")
+        self._plan = plan_hemm(self.eng, self.tile, self.tile, self.tile)
+        if self.schedule is None:
+            self.schedule = select_schedule(
+                self.params, d=self._plan.ds_sigma.d, ctb=2 * self.tile)
+        else:
+            warnings.warn(
+                "SecureMatmulEngine(schedule=...) is deprecated: leave it "
+                "unset (the cost model selects the schedule) or compile "
+                "programs explicitly via repro_torch.core.compile.",
+                DeprecationWarning, stacklevel=3)
+        if self.batched is None:
+            self.batched = self.schedule == "pallas"
+
+    def keygen(self, rng: np.random.Generator) -> Keys:
+        return self.ctx.keygen(rng, rot_steps=self._plan.rot_steps)
+
+    def encrypt_tiles(self, X: np.ndarray, rng) -> list:
+        """Pad to tile multiples, encrypt each tile as one Ct (row-major
+        grid)."""
+        t = self.tile
+        m, n = X.shape
+        gm, gn = math.ceil(m / t), math.ceil(n / t)
+        P = np.zeros((gm * t, gn * t))
+        P[:m, :n] = X
+        return [[encrypt_matrix(self.eng, self.ctx.keys,
+                                P[i * t:(i + 1) * t, j * t:(j + 1) * t], rng)
+                 for j in range(gn)] for i in range(gm)]
+
+    def matmul_encrypted(self, A_tiles, B_tiles,
+                         batched: Optional[bool] = None) -> list:
+        """Block MM over ciphertext tiles: C[i][j] = Σ_k A[i][k]·B[k][j].
+
+        ``batched=False``: the sequential loop, one unbatched Algorithm-2
+        program per (i, j, k) tile pair.  ``batched=True``: the whole grid
+        through ``compile_blockmm``."""
+        if batched is None:
+            batched = self.batched
+        gm, gl, gn = len(A_tiles), len(A_tiles[0]), len(B_tiles[0])
+        if len(B_tiles) != gl:
+            raise ValueError(f"A has {gl} tile columns, B {len(B_tiles)} "
+                             f"tile rows")
+        if batched and self.schedule != "baseline":
+            return self._matmul_encrypted_batched(A_tiles, B_tiles)
+        prog = compile_hemm(self.ctx, self._plan, schedule=self.schedule,
+                            rotation_chunk=self.rotation_chunk, batched=False)
+        out = []
+        for i in range(gm):
+            row = []
+            for j in range(gn):
+                acc: Optional[Ciphertext] = None
+                for k in range(gl):
+                    prod = prog(A_tiles[i][k], B_tiles[k][j])
+                    acc = prod if acc is None else self.eng.add(acc, prod)
+                row.append(acc)
+            out.append(row)
+        return out
+
+    def _matmul_encrypted_batched(self, A_tiles, B_tiles,
+                                  a_slots=None, b_slots=None) -> list:
+        """The whole grid as one ``compile_blockmm`` program; ``a_slots`` /
+        ``b_slots`` are its row-major aliasing hints."""
+        prog = compile_blockmm(
+            self.ctx, self._plan,
+            (len(A_tiles), len(B_tiles), len(B_tiles[0])),
+            level=A_tiles[0][0].level, schedule=self.schedule,
+            rotation_chunk=self.rotation_chunk,
+            a_slots=a_slots, b_slots=b_slots)
+        return prog(A_tiles, B_tiles)
+
+    def decrypt_tiles(self, C_tiles, m: int, n: int) -> np.ndarray:
+        t = self.tile
+        gm, gn = len(C_tiles), len(C_tiles[0])
+        out = np.zeros((gm * t, gn * t))
+        for i in range(gm):
+            for j in range(gn):
+                out[i * t:(i + 1) * t, j * t:(j + 1) * t] = decrypt_matrix(
+                    self.eng, self.ctx.keys, C_tiles[i][j], t, t)
+        return out[:m, :n]
+
+    def secure_matmul(self, A: np.ndarray, B: np.ndarray,
+                      rng: np.random.Generator) -> np.ndarray:
+        """End to end: encrypt both inputs, block HE MM, decrypt."""
+        if self.ctx.keys is None:
+            self.keygen(rng)
+        At = self.encrypt_tiles(A, rng)
+        Bt = self.encrypt_tiles(B, rng)
+        Ct = self.matmul_encrypted(At, Bt)
+        return self.decrypt_tiles(Ct, A.shape[0], B.shape[1])
+
+
+class SecureLinear:
+    """y = x @ W with an encrypted path (both x and W encrypted, W once at
+    construction) and a plaintext one (``secure=False``)."""
+
+    def __init__(self, engine: SecureMatmulEngine, W: np.ndarray,
+                 rng: np.random.Generator, chain=(),
+                 chain_rows: Optional[int] = None):
+        if len(chain) or chain_rows is not None:
+            raise NotImplementedError(
+                "SecureLinear(chain=...): chains of hemm hops are not "
+                "ported yet (ROADMAP queue 1 item 6)")
+        self.engine = engine
+        self.W = np.asarray(W, dtype=np.float64)
+        if engine.ctx.keys is None:
+            engine.keygen(rng)
+        self._w_tiles = engine.encrypt_tiles(self.W, rng)
+
+    def __call__(self, x: np.ndarray, rng, secure: bool = True) -> np.ndarray:
+        if not secure:
+            return x @ self.W
+        xt = self.engine.encrypt_tiles(x, rng)
+        ct = self.engine.matmul_encrypted(xt, self._w_tiles)
+        return self.engine.decrypt_tiles(ct, x.shape[0], self.W.shape[1])

@@ -25,6 +25,13 @@ from repro_torch.core.params import u32_numpy
 CPU = "cpu"
 CHUNK = 2          # pads d 5 -> 6 (fame-s-rt) and 7 -> 8 (fame-m-rt)
 
+#: the numeric fields an ``HLTPlan`` shares with the reference's
+PLAN_FIELDS = ("schedule", "level", "batch", "nbeta", "chunk", "d", "d_pad",
+               "diag_slots", "n_diag_slots", "rotations", "operand_bytes",
+               "operand_bytes_naive", "stage_costs", "collective_bytes",
+               "n_model", "n_ct", "ct_slots", "n_ct_slots", "hoist_bytes",
+               "hoist_bytes_naive", "dedup_factor")
+
 
 def u32(a) -> np.ndarray:
     """A jax array or an int32 tensor -> its uint32 numpy bits."""

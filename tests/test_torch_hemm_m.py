@@ -74,3 +74,15 @@ def test_smoke_rounded_division_witness(s):
     floor_err = np.abs(decrypt_matrix(ctx.eng, ctx.keys, s["tC"], m, n) - want)
     round_err = np.abs(decrypt_matrix(ctx.eng, ctx.keys, rounded, m, n) - want)
     assert round_err.max() < floor_err.max()
+
+
+def test_cost_model_compile_equals_reference(s):
+    """``compile_hemm(ctx, plan)`` with no schedule and no chunk: the cost
+    model's fused pick with no d-padding, array-equal to the reference's
+    program (whose chunk pads d: padding rotations add nothing)."""
+    from repro_torch.core.compile import compile_hemm
+    prog = compile_hemm(s["ctx"], s["plan"])
+    assert (prog.plan.schedule, prog.plan.batched) == ("pallas", True)
+    for st in (prog.plan.step1, prog.plan.step2):
+        assert st.d_pad == max(st.d) == st.chunk
+    assert_ct_equal(s["jC"], prog(s["tA"], s["tB"]))

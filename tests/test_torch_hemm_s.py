@@ -98,7 +98,7 @@ def test_stale_program_refuses_after_rekeygen(s):
     with pytest.raises(RuntimeError, match="stale"):
         prog(s["tA"], s["tB"])
     for bad in (dict(schedule="sharded", rotation_chunk=2),
-                dict(schedule="pallas", rotation_chunk=None)):
+                dict(schedule="pallas", rotation_chunk=0)):
         with pytest.raises(ValueError):
             compile_hemm(ctx, s["plan"], **bad)
 
