@@ -95,21 +95,49 @@ Phases, each printing its lines before the last:
    Step-1 σ HLT on ``mo`` with the engine and context on ``"xla"`` and the
    fused epsilon (no kernel launch) array-equal to the ``pallas`` one; the
    raw error, peak device memory and stage times printed;
+3d. chain — Set-B, ``plan_hemm_chain(eng, (128,) * 5)``: a chain
+   Y = X·W1·W2·W3 of three hemm 128³ hops at input levels 15, 12, 9 (an
+   MLP block's depth; ``max_chain_depth`` at level 15, printed, is 5) on
+   ``CkksEngine(SET_B, datapath="pallas")`` with
+   ``HEContext(verify="error")``.  X and the weights come from a numpy
+   seed, the weights with entries of standard deviation 1/√l.  Keygen
+   over ``chain.rot_steps``, ``compile_hemm_chain`` with no schedule (the
+   cost model must pick ``("pallas",) * 3``), a warm-up call, then the
+   counted call (launches as ``expected_launches`` summed over the hops,
+   each with the key-switch digits at its products' level: 2, 2, 1;
+   6 HLT and 4 program launches; the gather paths as ``tile_sources``
+   predicts; no decrypt inside the call; every hop's (level, scale)
+   equal to ``plan.hop_out``) with its peak device memory, and a timed
+   call with each hop's stage times; the same chain with every hop
+   unbatched (``fused_hlt`` / ``baseconv_ntt``, counted too) array-equal
+   hop by hop; the decrypted output against numpy X·W1·W2·W3 within 0.05
+   once the reference's rescale bias is cancelled by the call on −X with
+   the same weight ciphertexts, the raw error printed; a 6-hop chain
+   (level 18 needed) refused with ``VerificationError`` (LS001/LS003
+   only) under ``"error"`` and ``ValueError`` under ``"warn"``, the
+   arena, memo, counters and launches unchanged.  Phases 3, 3b, 3c and 3d
+   each run ``verify_program`` on their program: no error-severity
+   diagnostic;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
    ``HEContext`` datapaths; every c0 and c1 array-equal to its ``cpu``
    twin, and all but ``baseline``'s array-equal to each other; then the
    ``fame-m-rt`` block MM (tile 4, A 6×5 · B 5×7, a (2, 2, 2) grid),
-   batched and looped, on ``cuda`` and on ``cpu``, all array-equal.
+   batched and looped, on ``cuda`` and on ``cpu``, all array-equal; and
+   the ``fame-m-chain`` depth-3 chain (4×4 · 4×4 · 4×4 · 4×4) on
+   ``cuda`` and on ``cpu``, every hop's c0 and c1 array-equal.
 
-Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+Then one line ``{"kernels": [...]}`` (each kernel's launches on the main
+path, and ``launches_blockmm`` / ``launches_chain`` from the counted
+calls of phases 3b and 3d) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
 imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import pathlib
@@ -1205,19 +1233,23 @@ def round_divisions(eng):
     return undo
 
 
-def expected_launches(batched: bool, l: int, digits: int = 2) -> dict:
+def expected_launches(batched: bool, l: int, digits=2) -> dict:
     """Kernel launches of one hemm call on each path (every other kernel
     of ``KERNELS`` launches 0 times); ``digits``: the key-switch digits at
-    the products' level (2 at Set-B, 3 at Set-C)."""
+    the products' level (2 at Set-B, 3 at Set-C), or a sequence of them,
+    one a hop of a chain of such hemms (the sum over the hops)."""
     want = {k: 0 for k in KERNELS}
-    per = digits + 4                      # per product: the digits, 2
-    want.update(ntt=per * l, intt=per * l)  # ModDowns, 2 rescales, each
-    if batched:                           # an iNTT + an NTT
-        want.update(fused_hlt_indexed=2, hoist_db=2, intt_scale=2,
-                    moddown_finish=2)
-    else:   # 2 + 2·l single HLTs, 4 single hoists (Step 1, Step-2 hoist)
-        want.update(fused_hlt=2 + 2 * l, baseconv_ntt=4,
-                    intt_scale=4 + 2 + 2 * l, moddown_finish=2 + 2 * l)
+    for dg in ((digits,) if isinstance(digits, int) else digits):
+        per = dg + 4                      # per product: the digits, 2
+        add = dict(ntt=per * l, intt=per * l)   # ModDowns, 2 rescales,
+        if batched:                       # each an iNTT + an NTT
+            add.update(fused_hlt_indexed=2, hoist_db=2, intt_scale=2,
+                       moddown_finish=2)
+        else:   # 2 + 2·l single HLTs, 4 single hoists (Step 1, Step-2 hoist)
+            add.update(fused_hlt=2 + 2 * l, baseconv_ntt=4,
+                       intt_scale=4 + 2 + 2 * l, moddown_finish=2 + 2 * l)
+        for k, v in add.items():
+            want[k] += v
     return want
 
 
@@ -1386,6 +1418,19 @@ def assert_ct_equal(a, b, what):
         raise AssertionError(f"{what}: ciphertexts differ")
 
 
+def check_verified(tag: str, prog) -> None:
+    """``verify_program`` on a compiled program (components included):
+    no error-severity diagnostic."""
+    from repro_torch.analysis import format_report, verify_program
+    from repro_torch.analysis.diagnostics import errors
+    diags = verify_program(prog)
+    if errors(diags):
+        raise AssertionError(f"{tag}: verify_program found errors:\n"
+                             f"{format_report(diags)}")
+    log(f"[{tag}] verify_program({type(prog).__name__}): {len(diags)} "
+        f"finding(s), no error")
+
+
 def phase_main(params, shape):
     """Set-B hemm on the "pallas" engine: the batched program (counted,
     timed, once more on the "xla" engine, the four-sign and rounded-
@@ -1420,6 +1465,7 @@ def phase_main(params, shape):
         f"keys), encrypt+compile {t3 - t2:.1f} s; arena "
         f"{ctx.arena.nbytes / 1e9:.2f} GB, step1 d={prog.plan.step1.d[0]} "
         f"d_pad={prog.plan.step1.d_pad}, step2 B={prog.plan.step2.batch}")
+    check_verified("main", prog)
 
     prog(ctA, ctB)                                  # warm-up
     torch.cuda.synchronize()
@@ -1774,6 +1820,7 @@ def phase_blockmm(params) -> dict:
     if grid != (2, 2, 2) or bp.hlt_launches != 2:
         raise AssertionError(f"block MM: grid {grid}, {bp.hlt_launches} "
                              f"HLT launches")
+    check_verified("blockmm", prog)
 
     torch.cuda.reset_peak_memory_stats()
     C, stages, launches = counted_call(ctx, prog, At, Bt, True, products,
@@ -1882,6 +1929,7 @@ def phase_set_c(shape) -> None:
         f"keys), encrypt+compile {t3 - t2:.1f} s; arena "
         f"{ctx.arena.nbytes / 1e9:.2f} GB, step1 d={prog.plan.step1.d[0]}, "
         f"step2 B={prog.plan.step2.batch}")
+    check_verified("set-c", prog)
     prog(ctA, ctB)                                  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1933,6 +1981,268 @@ def phase_set_c(shape) -> None:
         f"and HEContext(datapath=\"xla\") with the fused epsilon, 0 kernel "
         f"launches, {mms:.3f} ms with its chain hoist; c0, c1 array-equal "
         f"to pallas (hoist + fused_hlt + merged ModDown), {pms:.3f} ms")
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: a chain of hemm hops at Set-B
+# ---------------------------------------------------------------------------
+
+
+def chain_call(prog, ctX, w_cts):
+    """One chain call with the device synchronised at each hop's stage
+    boundaries; returns (hop outputs, [{stage: ms} per hop], total ms)."""
+    import torch
+    marks = {}
+
+    def hook(h, name):
+        torch.cuda.synchronize()
+        marks[h, name] = time.perf_counter()
+
+    prog.stage_hook = hook
+    try:
+        outs = prog.run_hops(ctX, w_cts)
+    finally:
+        prog.stage_hook = None
+    hops = []
+    for h in range(len(outs)):
+        st = {k: (marks[h, k] - marks[h, STAGES[i]]) * 1e3
+              for i, k in enumerate(STAGES[1:])}
+        st["hemm_total"] = (marks[h, "mult_rescale"] - marks[h, "start"]) * 1e3
+        hops.append(st)
+    total = (marks[len(outs) - 1, "mult_rescale"] - marks[0, "start"]) * 1e3
+    return outs, hops, total
+
+
+def chain_counted(ctx, prog, ctX, w_cts, batched: bool, tag: str):
+    """The chain's counted call: every launch counter zeroed just before it
+    and read just after, held against ``expected_launches`` summed over the
+    hops (each with the key-switch digits at its products' level), the
+    context's HLT and program counts, the gather paths against
+    ``program_paths`` over the hops, no decrypt inside the call, and each
+    hop's output (level, scale) against the plan's trace exactly.
+    Returns (hop outputs, launches)."""
+    from repro_torch.kernels import ops
+    plan = prog.plan
+    eng = ctx.eng
+    l = plan.shapes[0][1]
+    digits = [len(eng.tools.digit_bases(lvl - 2)) for lvl in plan.hop_levels]
+    c0, d0 = dict(ctx.counters), eng.op_counts["decrypts"]
+    ops.reset_launch_counts()
+    res = {}
+    paths = count_paths(lambda: res.update(outs=prog.run_hops(ctX, w_cts)))
+    launches = ops.launch_counts()
+    hlts = ctx.counters["hlt_launches"] - c0["hlt_launches"]
+    progs = ctx.counters["program_launches"] - c0["program_launches"]
+    want = expected_launches(batched, l, digits)
+    what = "batched" if batched else "unbatched"
+    k = plan.k
+    if launches != want or hlts != k * (2 if batched else 2 + 2 * l) \
+            or progs != k + 1:
+        raise AssertionError(f"{what} chain launched {launches}, {hlts} HLTs, "
+                             f"{progs} programs; expected {want}")
+    if eng.op_counts["decrypts"] != d0:
+        raise AssertionError(f"{what} chain decrypted inside the call")
+    want_paths = [sum(x) for x in zip(*(program_paths(hp)
+                                        for hp in prog._hops))]
+    if paths[1] != 0 or paths != want_paths:
+        raise AssertionError(f"{what} chain: (block, rotation) pairs "
+                             f"{paths}, tile_sources predicts {want_paths}")
+    got = [(o.level, o.scale) for o in res["outs"]]
+    if got != [(st.level, st.scale) for st in plan.hop_out]:
+        raise AssertionError(f"{what} chain: hop outputs (level, scale) "
+                             f"{got}, traced {plan.hop_out}")
+    log(f"[{tag}] {what} counted call: key-switch digits per hop "
+        f"{digits}; {hlts} HLT launches, {progs} program launches, 0 "
+        f"decrypts; (block, rotation) pairs staged {paths[0]}, gathered "
+        f"{paths[1]}, identity {paths[2]} (as tile_sources predicts); every "
+        f"hop's (level, scale) equal to plan.hop_out")
+    return res["outs"], launches
+
+
+def phase_chain(params) -> dict:
+    """Set-B chain Y = X·W1·W2·W3 of three hemm 128³ hops
+    (``plan_hemm_chain`` on ``CHAIN_DIMS``) on ``CkksEngine(SET_B,
+    datapath="pallas")`` with ``HEContext(verify="error")``: the cost
+    model's schedules, a warm-up, the counted call (``chain_counted``), a
+    timed call with each hop's stage times, the same chain with every hop
+    unbatched (``fused_hlt`` / ``baseconv_ntt``) array-equal hop by hop,
+    the product against numpy once the reference's rescale bias is
+    cancelled by the call on −X, the rejection of a 6-hop chain with
+    nothing built, and ``verify_program`` on the chain.  Returns the
+    counted call's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import VerificationError, max_chain_depth
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import (HEContext, HEMMChainProgram,
+                                          compile_hemm, compile_hemm_chain)
+    from repro_torch.core.hemm import (decrypt_matrix, encrypt_matrix,
+                                       plan_hemm_chain)
+    from repro_torch.kernels import ops
+
+    dims = CHAIN_DIMS
+    m, l, n = dims[0], dims[1], dims[-1]
+    rng = np.random.default_rng(20263)
+    t0 = time.perf_counter()
+    ctx = HEContext(CkksEngine(params, datapath="pallas"), verify="error")
+    eng = ctx.eng
+    chain = plan_hemm_chain(eng, dims)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if any(hp is not chain.hops[0] for hp in chain.hops):
+        raise AssertionError("chain hops of one shape do not share a plan")
+    depth = max_chain_depth(eng.ctx.moduli_host, chain.hops[0],
+                            level=params.L, scale=params.scale)
+    ctx.keygen(rng, rot_steps=chain.rot_steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prog = compile_hemm_chain(ctx, chain)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    cp = prog.plan
+    log(f"[chain] {params.name} chain {' x '.join(map(str, dims))} "
+        f"({cp.k} hops of hemm {m}x{l}x{l}) on CkksEngine(datapath="
+        f"\"pallas\"), HEContext(verify=\"error\"): plan {t1 - t0:.1f} s, "
+        f"keygen {t2 - t1:.1f} s ({len(ctx.keys.galois)} Galois keys), "
+        f"compile {t3 - t2:.1f} s; max_chain_depth at level {params.L}: "
+        f"{depth}; schedules {cp.schedules}; hop input levels "
+        f"{cp.hop_levels}, outputs {[(s.level, s.scale) for s in cp.hop_out]}"
+        f"; operand bytes per hop {cp.hop_bytes} (arena "
+        f"{ctx.arena.nbytes / 1e9:.2f} GB), hoist bytes {cp.hoist_bytes}")
+    if cp.schedules != ("pallas",) * cp.k or cp.k != 3:
+        raise AssertionError(f"chain: the cost model picked {cp.schedules}")
+    if any(max(hp.step1.d) != hp.step1.d_pad or
+           max(hp.step2.d) != hp.step2.d_pad for hp in cp.hops):
+        raise AssertionError("chain: the cost model padded d")
+    check_verified("chain", prog)
+
+    # MLP-style weights: entries of standard deviation 1/√l keep every
+    # hop's output of the order of X
+    X = rng.uniform(-1, 1, (m, l))
+    Ws = [rng.uniform(-1, 1, (dims[h + 1], dims[h + 2]))
+          * np.sqrt(3.0 / dims[h + 1]) for h in range(cp.k)]
+    ctX = encrypt_matrix(eng, ctx.keys, X, rng)
+    w_cts = prog.encrypt_weights(Ws, rng)
+    prog(ctX, w_cts)                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, launches = chain_counted(ctx, prog, ctX, w_cts, True, "chain")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[chain] batched counted call: launches {json.dumps(launches)}; "
+        f"peak device memory {peak / 1e9:.2f} GB over the call")
+    _, hops, total = chain_call(prog, ctX, w_cts)
+    for h, st in enumerate(hops):
+        log(f"[chain] batched timed call, hop {h} (input level "
+            f"{cp.hop_levels[h]}): stage ms {fmt(st)}")
+    log(f"[chain] batched timed call: {total:.3f} ms for {cp.k} hops")
+
+    # −X with the same weight ciphertexts: (Y(X) − Y(−X)) / 2 cancels the
+    # data-independent part of the reference's floor-rescale bias
+    ctN = encrypt_matrix(eng, ctx.keys, -X, rng)
+    yp = decrypt_matrix(eng, ctx.keys, outs[-1], m, n)
+    yn = decrypt_matrix(eng, ctx.keys, prog(ctN, w_cts), m, n)
+    want = X
+    for W in Ws:
+        want = want @ W
+    for y in (yp, yn):
+        if y.shape != (m, n) or not np.all(np.isfinite(y)):
+            raise AssertionError("decrypted chain output is not finite / "
+                                 "mis-shaped")
+    raw = float(np.abs(yp - want).max())
+    err = float(np.abs((yp - yn) / 2 - want).max())
+    log(f"[chain] max|Y - X·W1·W2·W3| = {raw:.3e} (|Y| up to "
+        f"{np.abs(want).max():.3f}); sign-combined with -X: {err:.3e} "
+        f"(limit {TOL}); output level {outs[-1].level}")
+    if not err <= TOL:
+        raise AssertionError(f"chain output off by {err}")
+
+    # every hop unbatched (fused_hlt / baseconv_ntt), on the same keys
+    uhops = [compile_hemm(ctx, hp, level=lvl, schedule="pallas",
+                          batched=False)
+             for hp, lvl in zip(chain.hops, cp.hop_levels, strict=True)]
+    uprog = HEMMChainProgram(ctx, chain, dataclasses.replace(
+        cp, hops=tuple(hp.plan for hp in uhops)), uhops)
+    uouts, ulaunches = chain_counted(ctx, uprog, ctX, w_cts, False, "chain")
+    for h, (a, b) in enumerate(zip(outs, uouts, strict=True)):
+        assert_ct_equal(a, b, f"chain hop {h}, unbatched vs batched")
+    _, uhops, utotal = chain_call(uprog, ctX, w_cts)
+    log(f"[chain] unbatched: every hop array-equal to the batched chain's; "
+        f"launches {json.dumps(ulaunches)}; timed call {utotal:.3f} ms, hop "
+        f"stage ms {[fmt(st) for st in uhops]}")
+    del uprog, uouts
+
+    # a chain deeper than the modulus chain: refused before anything builds
+    deep = plan_hemm_chain(eng, (m,) * (REJECT_HOPS + 2))
+    before = (len(ctx.arena), len(ctx._compiled), dict(ctx.counters))
+    ops.reset_launch_counts()
+    try:
+        compile_hemm_chain(ctx, deep)
+    except VerificationError as e:
+        rules = {d.rule for d in e.diagnostics if d.severity == "error"}
+    else:
+        raise AssertionError(f"a {REJECT_HOPS}-hop chain compiled")
+    ctx.verify = "warn"
+    try:
+        compile_hemm_chain(ctx, deep)
+    except ValueError as e:
+        why = str(e).split(":")[0]
+    else:
+        raise AssertionError(f"a {REJECT_HOPS}-hop chain compiled under warn")
+    finally:
+        ctx.verify = "error"
+    after = (len(ctx.arena), len(ctx._compiled), dict(ctx.counters))
+    if not rules or not rules <= {"LS001", "LS003"} or after != before \
+            or any(ops.launch_counts().values()):
+        raise AssertionError(f"{REJECT_HOPS}-hop chain: error rules {rules}; "
+                             f"arena/memo/counters {before} -> {after}; "
+                             f"launches {ops.launch_counts()}")
+    log(f"[chain] {REJECT_HOPS}-hop chain (needs level {3 * REJECT_HOPS}): "
+        f"VerificationError with error rules {sorted(rules)} under "
+        f"\"error\", ValueError ({why}) under \"warn\"; arena, memo, "
+        f"counters and launches unchanged")
+    return launches
+
+
+def cpu_vs_cuda_chain():
+    """The fame-m-chain depth-3 chain 4×4 · 4×4 · 4×4 · 4×4 on cuda and on
+    cpu (``HEContext(verify="error")`` on a ``"pallas"`` engine): every
+    hop's c0 and c1 array-equal, the output within ``TOL`` of numpy."""
+    import numpy as np
+    from repro_torch.configs.fame_sets import FAME_CHAIN_SETS
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import HEContext, compile_hemm_chain
+    from repro_torch.core.hemm import (decrypt_matrix, encrypt_matrix,
+                                       plan_hemm_chain)
+    from repro_torch.core.params import u32_numpy
+
+    params = FAME_CHAIN_SETS["fame-m-chain"]
+    dims = (4,) * 5
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(11)
+        ctx = HEContext(CkksEngine(params, device=dev, datapath="pallas"),
+                        verify="error")
+        chain = plan_hemm_chain(ctx.eng, dims)
+        ctx.keygen(rng, rot_steps=chain.rot_steps)
+        prog = compile_hemm_chain(ctx, chain)
+        X = rng.uniform(-0.5, 0.5, (4, 4))
+        Ws = [rng.uniform(-0.5, 0.5, (4, 4)) for _ in range(3)]
+        hops = prog.run_hops(encrypt_matrix(ctx.eng, ctx.keys, X, rng),
+                             prog.encrypt_weights(Ws, rng))
+        err = float(np.abs(decrypt_matrix(ctx.eng, ctx.keys, hops[-1], 4, 4)
+                           - X @ Ws[0] @ Ws[1] @ Ws[2]).max())
+        if not err <= TOL:
+            raise AssertionError(f"fame-m-chain chain on {dev}: off by {err}")
+        outs[dev] = [(u32_numpy(ct.c0), u32_numpy(ct.c1), ct.level, ct.scale)
+                     for ct in hops]
+    for h, (g, w) in enumerate(zip(outs["cuda"], outs["cpu"], strict=True)):
+        np.testing.assert_array_equal(g[0], w[0], err_msg=f"hop {h} c0")
+        np.testing.assert_array_equal(g[1], w[1], err_msg=f"hop {h} c1")
+        if g[2:] != w[2:]:
+            raise AssertionError(f"fame-m-chain hop {h}: {g[2:]} vs {w[2:]}")
+    log(f"[cpu-vs-cuda] fame-m-chain chain 4x4x4x4x4 (3 hops, schedules "
+        f"{prog.plan.schedules}): every hop's c0, c1 array-equal on cuda and "
+        f"cpu; max|Y - X·W1·W2·W3| = {err:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -1998,6 +2308,7 @@ def phase_cpu_vs_cuda():
             f"{sorted({(k[3], k[2], k[4]) for k in runs})}); max|C - A·B| = "
             f"{want[4]:.3e}")
     cpu_vs_cuda_blockmm(params)
+    cpu_vs_cuda_chain()
 
 
 def cpu_vs_cuda_blockmm(params):
@@ -2077,6 +2388,12 @@ SET_C_SHAPE = (32, 32, 32)
 BLOCKMM_TILE = 64
 BLOCKMM_SHAPES = ((100, 120), (120, 70))
 
+#: the Set-B chain: three hops of the main path's hemm 128³ (an MLP
+#: block's depth; level 15 affords 5 hops of 3 levels), and the depth of
+#: the chain that must be refused (6 hops need level 18)
+CHAIN_DIMS = (128,) * 5
+REJECT_HOPS = 6
+
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
@@ -2144,11 +2461,20 @@ def main() -> int:
     log(f"[set-c] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    chain = phase_chain(SET_B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[chain] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
-        dict(r.entry(launches[name]), launches_blockmm=blockmm[name])
+        dict(r.entry(launches[name]), launches_blockmm=blockmm[name],
+             launches_chain=chain[name])
         for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

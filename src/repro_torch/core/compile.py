@@ -18,7 +18,10 @@ schedule runs a batch as a loop of single executions.
 ``compile_hemm(..., batched=False)`` builds Algorithm 2 from 2 + 2·l
 single HLTs instead of two batched ones (``baseline`` is never batched).
 ``compile_blockmm`` runs a whole (gm, gl, gn) grid of single-ciphertext
-tiles as two batched HLTs (``BlockMMProgram``).
+tiles as two batched HLTs (``BlockMMProgram``), and
+``compile_hemm_chain`` a chain Y = X·W1·…·Wk of hemm hops with no
+decrypt between them (``HEMMChainProgram``; the plan is
+``core/hemm.py`` ``plan_hemm_chain``).
 
 ``HEContext(datapath=)`` picks the lowering of the fused schedule's hoist
 and merged ModDown+Rescale: ``"pallas"`` (default) the fused kernels,
@@ -33,23 +36,33 @@ parameter set, else ``"mo"``; ``plan.schedule`` records the pick.
 ``"pallas"`` the chunk only sets the d-padding (d_pad is the next
 multiple of the chunk) while the CUDA kernel loops over all d_pad
 rotations itself, so the cost model's pick is no padding; ``mo`` runs
-that many rotations a step.  The port has no verifier yet (ROADMAP queue
-1 item 7): no compile is checked before the memo store, and no memo key
-carries a verify mode.  ``HEContext`` owns all precompute: the operand arena (one slot per unique
-DiagSet at a compile point) and the compile memo; ``invalidate()`` (run by
-``keygen``) drops both, and compiled objects from before refuse to run.
+that many rotations a step.
+
+``HEContext(verify=)`` runs the static verifier (``repro_torch.analysis``)
+on every compiled program before the memo stores it: ``"warn"``
+(default) warns, ``"error"`` raises ``VerificationError``, ``"off"``
+skips it; every memo key carries the mode.  ``HEContext`` owns all
+precompute: the operand arena (one slot per unique DiagSet at a compile
+point) and the compile memo; ``invalidate()`` (run by ``keygen``) drops
+both, and compiled objects from before refuse to run.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
+from repro_torch.analysis import verify as _verify
+from repro_torch.analysis.diagnostics import VerificationError
+from repro_torch.analysis.level_scale import trace_chain
 from repro_torch.core import hlt as hlt_mod
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
-from repro_torch.core.costmodel import (hlt_hoist_bytes, hlt_stage_costs,
-                                        pick_rotation_chunk, select_schedule)
+from repro_torch.core.costmodel import (SMEM_PER_BLOCK, hlt_hoist_bytes,
+                                        hlt_stage_costs, pick_rotation_chunk,
+                                        select_chain_schedules,
+                                        select_schedule)
 from repro_torch.core.hlt import (SCHEDULES, DiagSet, Hoisted, hoist,
                                   hoist_batched)
 from repro_torch.kernels import ops
@@ -113,18 +126,38 @@ class HEContext:
     lowering: ``"pallas"`` the fused kernels, ``"xla"`` the chains on the
     engine's transforms (the rotation datapath stays on its kernel).
 
+    ``verify`` is the static verifier's mode (``repro_torch.analysis``)
+    every compile runs through: ``"warn"`` (default) emits
+    VerificationWarning findings, ``"error"`` raises VerificationError on
+    error-severity findings, ``"off"`` skips verification.
+
+    ``smem_headroom`` is the fraction of one block's shared memory
+    (``costmodel.SMEM_PER_BLOCK``, 227 KB) the fused kernels may take:
+    the cost model picks ``"pallas"`` only where they fit it, and the
+    verifier's VM001 checks every fused launch of a compile against it.
+    A launch allocates exactly its footprint, so the default is 1.0.
+
     ``counters`` are monotonic lifetime statistics (not reset by
     ``invalidate``): ``hlt_launches`` counts CompiledHLT calls (one
     rotation-datapath launch each) and ``program_launches`` counts
-    HEMMProgram calls."""
+    program calls (HEMMProgram, BlockMMProgram, HEMMChainProgram)."""
 
+    VERIFY_MODES = ("error", "warn", "off")
     DATAPATHS = ("pallas", "xla")
 
     def __init__(self, eng: CkksEngine, keys: Optional[Keys] = None,
-                 datapath: str = "pallas"):
+                 datapath: str = "pallas", verify: str = "warn",
+                 smem_headroom: float = 1.0):
         if datapath not in self.DATAPATHS:
             raise ValueError(f"datapath={datapath!r} not in {self.DATAPATHS}")
+        if verify not in self.VERIFY_MODES:
+            raise ValueError(f"verify={verify!r} not in {self.VERIFY_MODES}")
+        if not smem_headroom > 0:
+            raise ValueError(f"smem_headroom={smem_headroom!r}: a positive "
+                             "fraction of a block's shared memory")
         self.datapath = datapath
+        self.verify = verify
+        self.smem_headroom = float(smem_headroom)
         self.eng = eng
         self.keys = keys
         self.arena = OperandArena()
@@ -138,6 +171,11 @@ class HEContext:
         ctx = cls(CkksEngine(params, device=device))
         ctx.keygen(rng, rot_steps=rot_steps)
         return ctx
+
+    @property
+    def smem_bytes(self) -> float:
+        """The fused kernels' per-block budget: ``smem_headroom`` × 227 KB."""
+        return self.smem_headroom * SMEM_PER_BLOCK
 
     def keygen(self, rng, rot_steps: Sequence[int] = ()) -> Keys:
         """Generate fresh keys and invalidate every cached operand."""
@@ -223,7 +261,9 @@ class HLTPlan:
     ``baseline``, which does not hoist).  ``stage_costs`` holds the
     per-stage counts of ``costmodel.hlt_stage_costs``.
     ``collective_bytes``, ``n_model`` and ``n_ct`` describe a mesh: 0, 1
-    and 1 on the port, which has none."""
+    and 1 on the port, which has none.  ``smem_headroom`` is the fraction
+    of a block's shared memory the compile allowed the fused kernels
+    (``HEContext.smem_headroom``; the verifier's VM001 reads it)."""
 
     schedule: str
     datapath: str
@@ -246,6 +286,7 @@ class HLTPlan:
     n_ct_slots: Optional[int] = None
     hoist_bytes: int = 0
     hoist_bytes_naive: int = 0
+    smem_headroom: float = 1.0
 
     @property
     def dedup_factor(self) -> float:
@@ -322,7 +363,7 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
     d_max = max(d_list)
     if schedule is None:
         schedule = select_schedule(
-            eng.params, nbeta=nbeta, d=d_max,
+            eng.params, nbeta=nbeta, smem_bytes=ctx.smem_bytes, d=d_max,
             ctb=batch if batch is not None else 1,
             n_uniq=None if ct_slots is None else len(set(ct_slots)))
     _check_schedule(schedule, rotation_chunk)
@@ -330,7 +371,8 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
     # schedules always hoist by the chain
     datapath = ctx.datapath if schedule == "pallas" else "xla"
     memo_key = ("hlt", schedule, level, batch, rotation_chunk, ct_slots,
-                datapath, tuple(_StrongKey(ds) for ds in diag_list))
+                ctx.verify, datapath,
+                tuple(_StrongKey(ds) for ds in diag_list))
     hit = ctx._compiled.get(memo_key)
     if hit is not None:
         return hit
@@ -362,8 +404,12 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
             n_limbs_ext=m_ext, ctb=ctb, n_hoist=n_hoist),
         ct_slots=ct_slots, n_ct_slots=n_ct_slots,
         hoist_bytes=h_unit * n_hoist if hoists else 0,
-        hoist_bytes_naive=h_unit * ctb if hoists else 0)
+        hoist_bytes_naive=h_unit * ctb if hoists else 0,
+        smem_headroom=ctx.smem_headroom)
     run = CompiledHLT(ctx, plan, tuple(diag_list), operands)
+    # the verifier runs before the memo store, so a rejected compile is
+    # never cached; the memo key carries ctx.verify
+    _verify.enforce(ctx, run)
     ctx._compiled[memo_key] = run
     return run
 
@@ -597,13 +643,14 @@ def compile_hemm(ctx: HEContext, plan, *, schedule: Optional[str] = None,
         # Step 2 (2·l HLTs off 2 unique inputs) dominates
         schedule = select_schedule(
             eng.params, nbeta=len(eng.tools.digit_bases(level)),
-            d=plan.ds_sigma.d, ctb=2 * plan.l, n_uniq=2)
+            smem_bytes=ctx.smem_bytes, d=plan.ds_sigma.d, ctb=2 * plan.l,
+            n_uniq=2)
     _check_schedule(schedule, rotation_chunk)
     if batched is None:
         batched = schedule == "pallas"
     batched = bool(batched) and schedule != "baseline"
     memo_key = ("hemm", _StrongKey(plan), schedule, level, rotation_chunk,
-                batched)
+                batched, ctx.verify)
     hit = ctx._compiled.get(memo_key)
     if hit is not None:
         return hit
@@ -627,6 +674,7 @@ def compile_hemm(ctx: HEContext, plan, *, schedule: Optional[str] = None,
         HEMMPlan(m=plan.m, l=plan.l, n=plan.n, schedule=schedule, level=level,
                  batched=batched, step1=s1_plan, step2=s2_plan),
         step1, step2)
+    _verify.enforce(ctx, prog)
     ctx._compiled[memo_key] = prog
     return prog
 
@@ -776,11 +824,11 @@ def compile_blockmm(ctx: HEContext, plan, grid, *,
     if schedule is None:
         schedule = select_schedule(
             eng.params, nbeta=len(eng.tools.digit_bases(level)),
-            d=plan.ds_sigma.d, ctb=plan.l * (nA + nB),
-            n_uniq=len(set(slots1)))
+            smem_bytes=ctx.smem_bytes, d=plan.ds_sigma.d,
+            ctb=plan.l * (nA + nB), n_uniq=len(set(slots1)))
     _check_schedule(schedule, rotation_chunk)
     memo_key = ("blockmm", _StrongKey(plan), grid, schedule, level,
-                rotation_chunk, a_slots, b_slots)
+                rotation_chunk, a_slots, b_slots, ctx.verify)
     hit = ctx._compiled.get(memo_key)
     if hit is not None:
         return hit
@@ -803,5 +851,235 @@ def compile_blockmm(ctx: HEContext, plan, grid, *,
                     schedule=schedule, level=level,
                     step1=step1.plan, step2=step2.plan),
         step1, step2)
+    _verify.enforce(ctx, prog)
+    ctx._compiled[memo_key] = prog
+    return prog
+
+
+# ---------------------------------------------------------------------------
+# compile_hemm_chain -> HEMMChainProgram (Y = X·W1·…·Wk, no decrypt)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HEMMChainPlan:
+    """Compile summary of a chain of hemm hops.
+
+    ``dims = (m, l, n1, …, nk)``: hop h multiplies the running m×dims[h+1]
+    ciphertext by a dims[h+1]×dims[h+2] weight.  ``hop_levels`` are the
+    hops' input levels (``level − 3h``: a hemm consumes 3); ``hop_out``
+    the (level, scale) ``trace_chain`` predicts at each hop's output,
+    which execution meets exactly; ``schedules`` the per-hop schedules
+    (``costmodel.select_chain_schedules`` unless given)."""
+
+    dims: tuple
+    shapes: tuple                       # (m, l, n) per hop
+    schedules: tuple
+    level: int                          # the chain's input level
+    hop_levels: tuple                   # input level per hop
+    hop_out: tuple                      # predicted CtState out of each hop
+    weight_scale: float                 # the weights' scale the trace took
+    repack: str                         # "fold" | "explicit"
+    hops: tuple                         # HEMMPlan per hop
+
+    @property
+    def k(self) -> int:
+        """Hops (matrix products) in the chain."""
+        return len(self.hops)
+
+    @property
+    def depth(self) -> int:
+        """Multiplicative depth: 3 levels a hop."""
+        return 3 * self.k
+
+    @property
+    def out_level(self) -> int:
+        """Level of the chain's output (``level − 3k``)."""
+        return self.hop_out[-1].level
+
+    @property
+    def out_scale(self) -> float:
+        """Scale of the chain's output (as traced)."""
+        return self.hop_out[-1].scale
+
+    @property
+    def rotations(self) -> int:
+        """Real rotations of one execution, over every hop."""
+        return sum(h.rotations for h in self.hops)
+
+    @property
+    def hop_bytes(self) -> tuple:
+        """Each hop's deduped key and diagonal operand bytes."""
+        return tuple(h.operand_bytes for h in self.hops)
+
+    @property
+    def operand_bytes(self) -> int:
+        """Key and diagonal operand bytes of the whole chain."""
+        return sum(self.hop_bytes)
+
+    @property
+    def hoist_bytes(self) -> int:
+        """Hoisting-product bytes after the ct-slot dedup (each hop's
+        Step 2 stores 2 products, never 2·l)."""
+        return sum(h.hoist_bytes for h in self.hops)
+
+    @property
+    def collective_bytes(self) -> int:
+        """Predicted cross-device bytes an execution: 0, no mesh."""
+        return sum(h.collective_bytes for h in self.hops)
+
+
+class HEMMChainProgram:
+    """A compiled chain: ``prog(ctX, [ctW1, …, ctWk]) -> ctY`` with
+    Y = X·W1·…·Wk under encryption, no decrypt between the hops.
+
+    Hop h's column-major m×n output fills slots [0, m·n) and is hop h+1's
+    σ input as it stands (the identity re-pack, ``core/hemm.py``
+    ``ChainRepack``), so each intermediate stays a ciphertext at the
+    traced (level, scale).  The weights enter at their hops' input levels
+    (:meth:`encrypt_weights`).
+
+    One call adds k+1 to ``program_launches`` (the chain and each hop's
+    HEMMProgram) and, on batched hops, 2·k to ``hlt_launches``; the
+    engine's ``op_counts["decrypts"]`` does not move.
+
+    ``stage_hook``: an optional callable(hop, stage_name), set on each
+    hop's HEMMProgram for the call (``HEMMProgram.stage_hook``)."""
+
+    def __init__(self, ctx: HEContext, chain, plan: HEMMChainPlan, hops):
+        self.ctx = ctx
+        self.chain = chain                  # core/hemm.py HeMMChainPlan
+        self.plan = plan
+        self._hops = tuple(hops)            # HEMMProgram per hop
+        self._gen = ctx._generation
+        self.stage_hook: Optional[Callable[[int, str], None]] = None
+
+    def encrypt_weights(self, Ws, rng) -> list:
+        """Encrypt W1..Wk at their hops' input levels with
+        ``plan.weight_scale``: the weight states the compile's trace took,
+        so execution meets ``plan.hop_out`` exactly."""
+        from repro_torch.core.hemm import encrypt_matrix
+        plan = self.plan
+        if len(Ws) != plan.k:
+            raise ValueError(f"{len(Ws)} weights for {plan.k} hops")
+        cts = []
+        for W, (_, l, n), lvl in zip(Ws, plan.shapes, plan.hop_levels,
+                                     strict=True):
+            W = np.asarray(W, dtype=np.float64)
+            if W.shape != (l, n):
+                raise ValueError(f"weight of shape {W.shape}, the hop "
+                                 f"takes {(l, n)}")
+            cts.append(encrypt_matrix(self.ctx.eng, self.ctx.keys, W, rng,
+                                      level=lvl, scale=plan.weight_scale))
+        return cts
+
+    def run_hops(self, ctX: Ciphertext, weights) -> list:
+        """Run the chain and return every hop's output (the last is the
+        chain's)."""
+        self.ctx._check_generation(self._gen)
+        self.ctx.counters["program_launches"] += 1
+        plan = self.plan
+        if ctX.level != plan.level:
+            raise ValueError(f"input level {ctX.level}, compiled for "
+                             f"{plan.level}")
+        if len(weights) != plan.k:
+            raise ValueError(f"{len(weights)} weights for {plan.k} hops")
+        ct, outs = ctX, []
+        for h, (prog, ctW) in enumerate(zip(self._hops, weights,
+                                            strict=True)):
+            if ctW.level != plan.hop_levels[h]:
+                raise ValueError(
+                    f"hop {h} weight at level {ctW.level}, the chain takes "
+                    f"{plan.hop_levels[h]} (encrypt_weights encrypts there)")
+            if self.stage_hook is not None:
+                prog.stage_hook = (lambda name, h=h:
+                                   self.stage_hook(h, name))
+            try:
+                ct = prog(ct, ctW)
+            finally:
+                prog.stage_hook = None
+            outs.append(ct)
+        return outs
+
+    def __call__(self, ctX: Ciphertext, weights) -> Ciphertext:
+        return self.run_hops(ctX, weights)[-1]
+
+
+def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
+                       schedule: Optional[str] = None,
+                       schedules: Optional[Sequence[str]] = None,
+                       rotation_chunk: Optional[int] = None,
+                       weight_scale: Optional[float] = None
+                       ) -> HEMMChainProgram:
+    """Compile a chain (``core/hemm.py`` ``plan_hemm_chain``) into a
+    reusable HEMMChainProgram.
+
+    The compile traces first: ``trace_chain`` runs over the hop plans
+    before anything is built.  A chain deeper than the modulus chain
+    allows (input ``level`` < 3·k: the trace's LS001/LS003 findings) never
+    returns a program: ``VerificationError`` with the trace's diagnostics
+    under ``ctx.verify="error"``, ``ValueError`` otherwise.
+    ``analysis.max_chain_depth`` names the deepest chain that fits.
+
+    ``schedule`` forces one schedule on every hop, ``schedules`` gives one
+    a hop; with neither, ``costmodel.select_chain_schedules`` picks them
+    (on one device: each hop's ``select_schedule`` pick).  Memoized on the
+    context."""
+    if ctx.keys is None:
+        raise RuntimeError("HEContext has no keys; call ctx.keygen()")
+    eng = ctx.eng
+    params = eng.params
+    level = params.L if level is None else level
+    ws = params.scale if weight_scale is None else float(weight_scale)
+    k = chain.k
+
+    trace = trace_chain(eng.ctx.moduli_host, chain.hops, level=level,
+                        scale=params.scale, weight_scale=ws)
+    if level < 3 * k:       # == the trace's LS001/LS003 findings fire
+        if ctx.verify == "error":
+            raise VerificationError(trace.diagnostics)
+        msgs = "; ".join(str(d) for d in trace.diagnostics
+                         if d.severity == "error")
+        raise ValueError(f"chain of {k} hops needs input level >= {3 * k} "
+                         f"(3 per hemm hop), got {level}: {msgs}")
+
+    if schedule is not None:
+        if schedules is not None:
+            raise ValueError("pass schedule= or schedules=, not both")
+        scheds = (schedule,) * k
+    elif schedules is not None:
+        scheds = tuple(schedules)
+        if len(scheds) != k:
+            raise ValueError(f"{len(scheds)} schedules for {k} hops")
+    else:
+        scheds = select_chain_schedules(
+            params,
+            [dict(d=hp.ds_sigma.d, ctb=2 * hp.l, n_uniq=2,
+                  nbeta=len(eng.tools.digit_bases(level - 3 * h)),
+                  level=level - 3 * h)
+             for h, hp in enumerate(chain.hops)],
+            smem_bytes=ctx.smem_bytes)
+    for s in scheds:
+        _check_schedule(s, rotation_chunk)
+
+    memo_key = ("hemm_chain", _StrongKey(chain), scheds, level,
+                rotation_chunk, ws, ctx.verify)
+    hit = ctx._compiled.get(memo_key)
+    if hit is not None:
+        return hit
+
+    hop_progs = [compile_hemm(ctx, hp, level=level - 3 * h,
+                              schedule=scheds[h],
+                              rotation_chunk=rotation_chunk)
+                 for h, hp in enumerate(chain.hops)]
+    plan = HEMMChainPlan(
+        dims=chain.dims,
+        shapes=tuple((hp.m, hp.l, hp.n) for hp in chain.hops),
+        schedules=scheds, level=level,
+        hop_levels=tuple(level - 3 * h for h in range(k)),
+        hop_out=trace.hop_states, weight_scale=ws, repack=chain.repack,
+        hops=tuple(p.plan for p in hop_progs))
+    prog = HEMMChainProgram(ctx, chain, plan, hop_progs)
+    _verify.enforce(ctx, prog)
     ctx._compiled[memo_key] = prog
     return prog

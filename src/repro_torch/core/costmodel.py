@@ -67,21 +67,23 @@ _MAX_LOGN, _MIN_LOGN = 16, 3
 
 def fused_stage_working_sets(params: "HEParams", *, nbeta: int,
                              d: int | None = None, level: int | None = None,
-                             batch: int = 1) -> dict:
+                             batch: int = 1,
+                             hoists: int | None = None) -> dict:
     """Per-block shared-memory bytes of each fused stage at one compile
     point, as the launches allocate them: ``rot`` the rotation kernel at
     the limb group it takes at d (``kernels/fused_hlt.py`` ``smem_bytes``,
-    ``limb_group``), ``hoist`` the batched hoist of ``batch`` ciphertexts,
-    ``moddown`` the merged ModDown over their 2·``batch`` polynomials
-    (``kernels/basechange.py``).  ``level`` (default the top) sizes the
-    extended basis and the hoist's limbs."""
+    ``limb_group``), ``hoist`` the batched hoist of ``hoists`` ciphertexts
+    (default ``batch``), ``moddown`` the merged ModDown over the 2·``batch``
+    output polynomials (``kernels/basechange.py``).  ``level`` (default the
+    top) sizes the extended basis and the hoist's limbs."""
     level = params.L if level is None else level
     d = _DEFAULT_D if d is None else d
+    hoists = batch if hoists is None else hoists
     N, m_ext = params.N, level + 1 + params.k
     return {
         "rot": fused_hlt.smem_bytes(nbeta, N,
                                     fused_hlt.limb_group(m_ext, d)),
-        "hoist": basechange.hoist_smem_bytes(batch, nbeta, level + 1,
+        "hoist": basechange.hoist_smem_bytes(hoists, nbeta, level + 1,
                                              m_ext, N),
         "moddown": basechange.moddown_smem_bytes(2 * batch, params.k + 1,
                                                  level, N),

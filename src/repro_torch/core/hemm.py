@@ -7,7 +7,8 @@ HLT over the column-major flattened matrix.  Every matrix has one entry
 per row, so the plan encodes its diagonals from the sparse form; the
 dense ``u_*`` functions build the same matrices as the reference.
 Execution is ``compile_hemm`` (core/compile.py); ``hemm()`` is the
-reference's deprecated one-call shim over it.
+reference's deprecated one-call shim over it.  ``plan_hemm_chain`` plans
+a chain Y = X·W1·…·Wk of hemm hops (``compile_hemm_chain`` runs it).
 
 The paper's §VI-A baselines run on the same engine: E2DM-S (pad to
 square), E2DM-R (pad to a rectangle-compatible shape) and Huang et al.
@@ -145,7 +146,10 @@ def plan_hemm(eng: CkksEngine, m: int, l: int, n: int,
 def encrypt_matrix(eng: CkksEngine, keys: Keys, X: np.ndarray,
                    rng: np.random.Generator, level: Optional[int] = None,
                    scale: Optional[float] = None) -> Ciphertext:
-    """Column-major flatten into the first rows·cols slots (paper Fig. 1)."""
+    """Column-major flatten into the first rows·cols slots (paper Fig. 1).
+    ``level`` / ``scale`` default to the top level and ``params.scale``; a
+    chain encrypts each weight at its hop's input level
+    (``HEMMChainProgram.encrypt_weights``)."""
     vec = np.asarray(X, dtype=np.float64).flatten(order="F")
     return eng.encrypt(eng.encode(vec, level=level, scale=scale), keys, rng)
 
@@ -154,6 +158,129 @@ def decrypt_matrix(eng: CkksEngine, keys: Keys, ct: Ciphertext,
                    m: int, n: int) -> np.ndarray:
     vals = eng.decrypt_decode(ct, keys, num=m * n).real
     return vals.reshape((m, n), order="F")
+
+
+# ---------------------------------------------------------------------------
+# chains: Y = X·W1·W2·…·Wk under encryption, no decrypt between the hops
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainRepack:
+    """The re-pack between hop h and hop h+1.
+
+    A hemm leaves hop h's m×n product column-major in slots [0, m·n), and
+    ``encode_diagonals`` clips every diagonal of U to its rows' support,
+    so hop h+1's σ (an m·l' × m·l' transform, l' = n) never reads a slot
+    ≥ m·n.  The re-pack is therefore the identity fold: the output window
+    is the next hop's σ input as it stands, whatever lies beyond it is
+    never read, and no level is spent between hops.
+
+    ``identity=True`` records that fact (``chain_repack`` checks it);
+    ``repack="explicit"`` in ``plan_hemm_chain`` encodes σ∘repack as its
+    own DiagSet — the same matrix, bit for bit, but a distinct operand that
+    costs one arena slot a boundary: the hook for input layouts that are
+    not an identity fold."""
+    rows: int        # m (carried through the chain)
+    cols: int        # n of the previous hop == l of the next
+    window: int      # rows·cols slots the previous hop's output fills
+    identity: bool   # column-major layout: the identity fold
+
+    def sparse(self) -> SparseMatrix:
+        """The re-pack over the next hop's σ domain (m·l × m·l)."""
+        i = np.arange(self.rows * self.cols)
+        return _sparse((i.size, i.size), i, i)
+
+    def matrix(self) -> np.ndarray:
+        """The re-pack as a dense matrix (the identity, for the native
+        column-major layout)."""
+        return _dense(self.sparse())
+
+
+def _compose(S: SparseMatrix, R: SparseMatrix) -> SparseMatrix:
+    """S·R for an R with one entry per row (a re-pack)."""
+    col = np.full(R.shape[0], -1, np.int64)
+    val = np.zeros(R.shape[0])
+    col[R.rows], val[R.rows] = R.cols, R.vals
+    keep = col[S.cols] >= 0
+    return SparseMatrix((S.shape[0], R.shape[1]), S.rows[keep],
+                        col[S.cols][keep], (S.vals * val[S.cols])[keep])
+
+
+def chain_repack(prev: HeMMPlan, nxt: HeMMPlan) -> ChainRepack:
+    """Check the hand-off of hop h to hop h+1 and return its re-pack."""
+    if prev.m != nxt.m:
+        raise ValueError(f"a chain carries m: the hop's output is "
+                         f"{prev.m}x{prev.n}, the next takes m={nxt.m}")
+    if prev.n != nxt.l:
+        raise ValueError(f"shape chain broken: the hop's output is "
+                         f"{prev.m}x{prev.n}, the next is "
+                         f"{nxt.m}x{nxt.l}·{nxt.l}x{nxt.n}")
+    # the next σ's domain is the previous output window
+    if nxt.ds_sigma.shape != (prev.m * prev.n, prev.m * prev.n):
+        raise ValueError(f"next σ is {nxt.ds_sigma.shape}, the window "
+                         f"{prev.m * prev.n}")
+    return ChainRepack(rows=prev.m, cols=prev.n, window=prev.m * prev.n,
+                       identity=True)
+
+
+@dataclasses.dataclass
+class HeMMChainPlan:
+    """Math plan of Y = X·W1·…·Wk.  ``dims = (m, l, n1, …, nk)``: hop h
+    multiplies (m × dims[h+1]) by (dims[h+1] × dims[h+2])."""
+    dims: tuple
+    hops: tuple            # HeMMPlan per hop (equal shapes share one plan)
+    repacks: tuple         # ChainRepack per boundary (k − 1 of them)
+    repack: str            # "fold" (identity, no operand) | "explicit"
+    rot_steps: tuple       # union over the hops: one keygen serves the chain
+
+    @property
+    def k(self) -> int:
+        return len(self.hops)
+
+    @property
+    def total_rotations(self) -> int:
+        return sum(h.total_rotations for h in self.hops)
+
+
+def plan_hemm_chain(eng: CkksEngine, dims, scale: Optional[float] = None,
+                    repack: str = "fold") -> HeMMChainPlan:
+    """Plan a chain of k = len(dims) − 2 hops, ``dims = (m, l, n1, …,
+    nk)``.  Hops of equal (m, l, n) share one HeMMPlan, cached on the
+    engine (``_chain_hop_plans``), so chains planned in separate calls
+    share it too and its DiagSets take one arena slot per compile point."""
+    if repack not in ("fold", "explicit"):
+        raise ValueError(f"repack={repack!r}: \"fold\" or \"explicit\"")
+    dims = tuple(int(d) for d in dims)
+    if len(dims) < 4:
+        raise ValueError("a chain needs >= 2 hops: dims = (m, l, n1, n2, …)")
+    m = dims[0]
+    by_shape = getattr(eng, "_chain_hop_plans", None)
+    if by_shape is None:
+        by_shape = eng._chain_hop_plans = {}
+    hops = []
+    for h in range(len(dims) - 2):
+        key = (m, dims[h + 1], dims[h + 2], scale)
+        if key not in by_shape:
+            by_shape[key] = plan_hemm(eng, *key[:3], scale=scale)
+        hops.append(by_shape[key])
+    repacks = tuple(chain_repack(hops[h], hops[h + 1])
+                    for h in range(len(hops) - 1))
+    if repack == "explicit":
+        # σ∘repack for each interior hop: the same matrix, a distinct
+        # DiagSet, so its own arena slot
+        hops = [hops[0]] + [
+            dataclasses.replace(
+                hops[h + 1],
+                ds_sigma=encode_diagonals(
+                    eng, _compose(sigma_map(hops[h + 1].m, hops[h + 1].l),
+                                  rp.sparse()), scale))
+            for h, rp in enumerate(repacks)]
+    steps = set()
+    for hp in hops:
+        steps.update(hp.rot_steps)
+    return HeMMChainPlan(dims, tuple(hops), repacks, repack,
+                         tuple(sorted(steps)))
 
 
 def hemm(eng: CkksEngine, ctA: Ciphertext, ctB: Ciphertext, plan: HeMMPlan,

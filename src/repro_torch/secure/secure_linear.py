@@ -7,13 +7,15 @@ counterpart of ``repro/secure/secure_linear.py``.
   to tile multiples.  The batched path runs the whole tile grid through
   ``compile_blockmm`` (two slot-indexed HLT launches); the sequential path
   runs one unbatched Algorithm-2 program per (i, j, k) tile pair.
-* ``SecureLinear`` — y = x @ W with W encrypted once at construction.
+* ``SecureLinear`` — y = x @ W with W encrypted once at construction, or
+  with ``chain=`` y = x·W·W2·…·Wk as one chain program with no decrypt
+  between the hops.
 
 The engine owns an ``HEContext`` (``core/compile.py``), on CUDA unless
 ``device="cpu"`` is asked for.  The cost model picks the schedule; the
 ``schedule=`` knob is a deprecated override, as in the reference.  Not
 ported yet, and refused: ``mesh=`` (the multi-device schedule, ROADMAP
-queue 1 item 9) and ``SecureLinear(chain=...)`` (chains, item 6).
+queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
-from repro_torch.core.compile import HEContext, compile_blockmm, compile_hemm
+from repro_torch.core.compile import (HEContext, compile_blockmm,
+                                      compile_hemm, compile_hemm_chain)
 from repro_torch.core.costmodel import select_schedule
-from repro_torch.core.hemm import decrypt_matrix, encrypt_matrix, plan_hemm
+from repro_torch.core.hemm import (decrypt_matrix, encrypt_matrix, plan_hemm,
+                                   plan_hemm_chain)
 from repro_torch.core.params import HEParams
 
 
@@ -148,24 +152,58 @@ class SecureMatmulEngine:
 
 class SecureLinear:
     """y = x @ W with an encrypted path (both x and W encrypted, W once at
-    construction) and a plaintext one (``secure=False``)."""
+    construction) and a plaintext one (``secure=False``).
+
+    Chain mode (``chain=(W2, …, Wk)``): y = x·W·W2·…·Wk as one compiled
+    chain (``compile_hemm_chain``), an encrypted MLP block with no decrypt
+    between the hops and every weight encrypted once at its hop's input
+    level.  It runs x as one ciphertext (no tiles), so every hop's
+    windows must fit the slots and the row count of x is fixed at
+    construction (``chain_rows``).  The modulus chain must afford 3 levels
+    a hop (``analysis.max_chain_depth``), else construction fails
+    (``configs/fame_sets.py`` ``FAME_CHAIN_SETS`` are sized for it)."""
 
     def __init__(self, engine: SecureMatmulEngine, W: np.ndarray,
                  rng: np.random.Generator, chain=(),
                  chain_rows: Optional[int] = None):
-        if len(chain) or chain_rows is not None:
-            raise NotImplementedError(
-                "SecureLinear(chain=...): chains of hemm hops are not "
-                "ported yet (ROADMAP queue 1 item 6)")
         self.engine = engine
         self.W = np.asarray(W, dtype=np.float64)
+        self.chain_weights = tuple(np.asarray(w, dtype=np.float64)
+                                   for w in chain)
+        self._chain_prog = None
+        if self.chain_weights:
+            if chain_rows is None:
+                raise ValueError("chain= runs x as one ciphertext: pass "
+                                 "chain_rows (the row count of x)")
+            dims = (int(chain_rows), *self.W.shape,
+                    *(w.shape[1] for w in self.chain_weights))
+            self._chain = plan_hemm_chain(engine.eng, dims)
+            # one keyset serves the engine's tile plan and the chain's hops
+            steps = set(engine._plan.rot_steps) | set(self._chain.rot_steps)
+            engine.ctx.keygen(rng, rot_steps=tuple(sorted(steps)))
+            self._chain_prog = compile_hemm_chain(engine.ctx, self._chain)
+            self._w_cts = self._chain_prog.encrypt_weights(
+                (self.W, *self.chain_weights), rng)
+            return
         if engine.ctx.keys is None:
             engine.keygen(rng)
         self._w_tiles = engine.encrypt_tiles(self.W, rng)
 
     def __call__(self, x: np.ndarray, rng, secure: bool = True) -> np.ndarray:
         if not secure:
-            return x @ self.W
+            y = x @ self.W
+            for w in self.chain_weights:
+                y = y @ w
+            return y
+        if self._chain_prog is not None:
+            eng, ctx = self.engine.eng, self.engine.ctx
+            m, l = self._chain.dims[:2]
+            if tuple(x.shape) != (m, l):
+                raise ValueError(f"x of shape {x.shape}, the chain takes "
+                                 f"{(m, l)}")
+            ctY = self._chain_prog(encrypt_matrix(eng, ctx.keys, x, rng),
+                                   self._w_cts)
+            return decrypt_matrix(eng, ctx.keys, ctY, m, self._chain.dims[-1])
         xt = self.engine.encrypt_tiles(x, rng)
         ct = self.engine.matmul_encrypted(xt, self._w_tiles)
         return self.engine.decrypt_tiles(ct, x.shape[0], self.W.shape[1])

@@ -160,9 +160,9 @@ def test_mesh_and_chain_raise_and_schedule_knob_warns(s):
     p = FAME_VERIFY_SETS[NAME]
     with pytest.raises(NotImplementedError, match="item 9"):
         SecureMatmulEngine(p, tile=TILE, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="chain_rows"):
         SecureLinear(s["te"], s["B"], np.random.default_rng(0),
-                     chain=(np.eye(7),), chain_rows=6)
+                     chain=(np.eye(7),))
     with pytest.warns(DeprecationWarning, match="schedule"):
         eng = SecureMatmulEngine(p, tile=TILE, schedule="mo",
                                  ctx=s["te"].ctx)
