@@ -100,8 +100,13 @@ Phases, each printing its lines before the last:
    MLP block's depth; ``max_chain_depth`` at level 15, printed, is 5) on
    ``CkksEngine(SET_B, datapath="pallas")`` with
    ``HEContext(verify="error")``.  X and the weights come from a numpy
-   seed, the weights with entries of standard deviation 1/√l.  Keygen
-   over ``chain.rot_steps``, ``compile_hemm_chain`` with no schedule (the
+   seed, the weights with entries of standard deviation 1/√l.  First
+   every kernel the later hops launch, at their own shapes, array-equal
+   to its plain version on random residues (``chain_kernels``: the
+   hoists, merged ModDowns and rotation kernels at levels 12, 11, 9 and
+   8 — among them the one-prime Step-2 digit and the 17-limb ModDown of
+   hop 3 — and the products' ntt / intt at levels 10 and 7, the
+   single-digit key switch).  Keygen over ``chain.rot_steps``, ``compile_hemm_chain`` with no schedule (the
    cost model must pick ``("pallas",) * 3``), a warm-up call, then the
    counted call (launches as ``expected_launches`` summed over the hops,
    each with the key-switch digits at its products' level: 2, 2, 1;
@@ -2059,6 +2064,126 @@ def chain_counted(ctx, prog, ctX, w_cts, batched: bool, tag: str):
     return res["outs"], launches
 
 
+def chain_kernels(eng, l: int, levels) -> None:
+    """The kernels of the chain's later hops at their own shapes, which no
+    earlier phase runs, each held array-equal to its plain version on
+    random residues: for each hop input level ℓ in ``levels``, the Step-1
+    HLT at ℓ (2 ciphertexts) and the Step-2 HLT at ℓ − 1 (2·l), each with
+    its hoist (``hoist_db``; ``baseconv_ntt``, the unbatched hoist), its
+    merged ModDown (``intt_scale`` through its row table,
+    ``moddown_finish`` at the batched and the unbatched shape) and its
+    rotation kernel (``fused_hlt_indexed``; ``fused_hlt`` on one set) on
+    the Galois tables; then the products' ``ntt`` / ``intt`` at ℓ − 2
+    over every basis a mult → rescale transforms, each key-switch digit's
+    own and generated rows included.  At ℓ = 9 these are the one-prime
+    Step-2 digit (level 8: digits of 8 and 1 primes), the 18- and 17-limb
+    ModDowns and the single-digit key switch at level 7."""
+    import torch
+    from repro_torch.kernels import basechange as bc, fused_hlt as fh
+    from repro_torch.kernels import ntt as kntt
+
+    p, dev = eng.params, eng.device
+    N = p.N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0xC4A1)
+
+    def same(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"chain kernels: {what} differs from its "
+                                 f"plain version")
+
+    for top in levels:
+        for step, level, B in ((1, top, 2), (2, top - 1, 2 * l)):
+            full = eng.tools.digit_bases(level)[0][2]
+            view = eng.basis(full)
+            q = view.moduli_u32
+            M, nq = len(full), level + 1
+            t = eng.fused_hoist_tables(level)
+            nbeta, alpha = t["nbeta"], t["alpha"]
+            na = [min(alpha, nq - j * alpha) for j in range(nbeta)]
+            tag = f"step {step} level {level}"
+            tabs = [t[k] for k in HOIST_KEYS]
+            kw = dict(nbeta=nbeta, alpha=alpha)
+            c1s = rand_residues((2, nq, N), q[:nq], gen)
+            same(f"hoist_db {tag}", bc.hoist_db_cuda(c1s, *tabs, **kw),
+                 bc.hoist_db_plain(c1s, *tabs, **kw))
+            y = rand_residues((nbeta * alpha, N), t["q_pad"], gen)
+            for j in range(nbeta):     # a short digit's rows are zero-padded
+                y[j * alpha + na[j]:(j + 1) * alpha] = 0
+            btabs = (t["w"], t["d"], t["inv_d"], t["psi_full"], t["q_full"],
+                     t["qneg_full"], rand_residues((M, N), q, gen), t["mask"])
+            same(f"baseconv_ntt {tag}", bc.baseconv_ntt_cuda(y, *btabs),
+                 bc.baseconv_ntt_plain(y, *btabs))
+            del c1s, y, btabs
+
+            mt = eng.fused_moddown_tables(level)
+            P, drop, R = 2 * B, mt["drop_idx"], mt["n_out"]
+            x = rand_residues((P, M, N), q, gen)
+            itabs = (mt["psii_drop"], mt["ninv_drop"], mt["hat_drop"],
+                     mt["q_drop"], mt["qneg_drop"])
+            ys = bc.intt_scale_rows_cuda(x, drop, *itabs)
+            same(f"intt_scale {tag} P={P}", ys,
+                 bc.intt_scale_plain(x[:, drop], *itabs))
+            mtabs = (mt["w"], mt["d"], mt["inv_d"], mt["psi_out"],
+                     mt["p_inv"], mt["q_out"], mt["qneg_out"])
+            for P_ in (P, 2):
+                same(f"moddown_finish {tag} P={P_}",
+                     bc.moddown_finish_cuda(x[:P_, :R], ys[:P_], *mtabs),
+                     bc.moddown_finish_plain(x[:P_, :R], ys[:P_], *mtabs))
+            del x, ys
+
+            perms, is_id = rotation_tables(eng, step)
+            S, d = perms.shape[:2]
+            args = (rand_residues((2, nbeta, M, N), q, gen),
+                    rand_residues((2, M, N), q, gen),
+                    rand_residues((2, M, N), q, gen),
+                    rand_residues((S, d, M, N), q, gen),
+                    rand_residues((S, d, nbeta, M, N), q, gen),
+                    rand_residues((S, d, nbeta, M, N), q, gen), perms, is_id,
+                    torch.tensor([0, 1] if step == 1 else [0] * l + [1] * l,
+                                 dtype=torch.int32, device=dev),
+                    torch.arange(S, dtype=torch.int32, device=dev), q,
+                    view.qneg_inv)
+            same(f"fused_hlt_indexed {tag}", fh.fused_hlt_indexed_cuda(*args),
+                 fh.fused_hlt_indexed_plain(*args))
+            one = tuple(a[0] for a in args[:8]) + args[10:]
+            same(f"fused_hlt {tag}", fh.fused_hlt_cuda(*one),
+                 fh.fused_hlt_plain(*one))
+            del args, one
+            torch.cuda.empty_cache()
+            log(f"[chain] kernels at step {step}, level {level} (digits "
+                f"{na}, {M} limbs, B={B}): hoist_db, baseconv_ntt, "
+                f"intt_scale (P={P}, {len(drop)} drop rows), moddown_finish "
+                f"(P={P} and 2, {R} rows), fused_hlt_indexed (S={S}, d={d}) "
+                f"and fused_hlt equal to plain")
+
+        ell = top - 2
+        spec = list(range(p.num_main, p.num_total))
+        bases = eng.tools.digit_bases(ell)
+        fwd = [list(g) for _, g, _ in bases] + [list(range(ell + 1)),
+                                                 list(range(ell))]
+        inv = [list(o) for o, _, _ in bases] + [spec, [ell]]
+        for name, cases in (("ntt", fwd), ("intt", inv)):
+            for idx in cases:
+                v = eng.basis(idx)
+                x = rand_residues((1, len(idx), N), v.moduli_u32, gen)
+                if name == "ntt":
+                    tb = (v.psi_brv_mont, v.moduli_u32, v.qneg_inv)
+                    kern, plain = kntt.ntt_cuda, kntt.ntt_plain
+                else:
+                    tb = (v.psi_inv_brv_mont, v.n_inv_mont, v.moduli_u32,
+                          v.qneg_inv)
+                    kern, plain = kntt.intt_cuda, kntt.intt_plain
+                same(f"{name} level {ell} rows={len(idx)}", kern(x, *tb),
+                     plain(x, *tb))
+        log(f"[chain] kernels at the products' level {ell} ({len(bases)} "
+            f"key-switch digit(s), own rows "
+            f"{[len(o) for o, _, _ in bases]}): ntt over "
+            f"{[len(i) for i in fwd]} rows and intt over "
+            f"{[len(i) for i in inv]} rows equal to plain")
+
+
 def phase_chain(params) -> dict:
     """Set-B chain Y = X·W1·W2·W3 of three hemm 128³ hops
     (``plan_hemm_chain`` on ``CHAIN_DIMS``) on ``CkksEngine(SET_B,
@@ -2068,8 +2193,9 @@ def phase_chain(params) -> dict:
     unbatched (``fused_hlt`` / ``baseconv_ntt``) array-equal hop by hop,
     the product against numpy once the reference's rescale bias is
     cancelled by the call on −X, the rejection of a 6-hop chain with
-    nothing built, and ``verify_program`` on the chain.  Returns the
-    counted call's launches."""
+    nothing built, and ``verify_program`` on the chain; before all of it,
+    ``chain_kernels`` at the later hops' levels.  Returns the counted
+    call's launches."""
     import numpy as np
     import torch
     from repro_torch.analysis import VerificationError, max_chain_depth
@@ -2093,6 +2219,10 @@ def phase_chain(params) -> dict:
         raise AssertionError("chain hops of one shape do not share a plan")
     depth = max_chain_depth(eng.ctx.moduli_host, chain.hops[0],
                             level=params.L, scale=params.scale)
+    chain_kernels(eng, l, [params.L - 3 * h for h in range(1, chain.k)])
+    torch.cuda.synchronize()
+    tk = time.perf_counter()
+    log(f"[chain] chain_kernels {tk - t1:.1f} s")
     ctx.keygen(rng, rot_steps=chain.rot_steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -2103,7 +2233,7 @@ def phase_chain(params) -> dict:
     log(f"[chain] {params.name} chain {' x '.join(map(str, dims))} "
         f"({cp.k} hops of hemm {m}x{l}x{l}) on CkksEngine(datapath="
         f"\"pallas\"), HEContext(verify=\"error\"): plan {t1 - t0:.1f} s, "
-        f"keygen {t2 - t1:.1f} s ({len(ctx.keys.galois)} Galois keys), "
+        f"keygen {t2 - tk:.1f} s ({len(ctx.keys.galois)} Galois keys), "
         f"compile {t3 - t2:.1f} s; max_chain_depth at level {params.L}: "
         f"{depth}; schedules {cp.schedules}; hop input levels "
         f"{cp.hop_levels}, outputs {[(s.level, s.scale) for s in cp.hop_out]}"

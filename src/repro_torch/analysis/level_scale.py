@@ -28,21 +28,15 @@ from repro_torch.analysis.diagnostics import Diagnostic
 
 # Addend scales are compared relatively: the engine takes the larger scale
 # at an add, so a real mismatch silently skews the decode.
-DEFAULT_RTOL = 1e-9
+RTOL = 1e-9
 
 
 @dataclasses.dataclass(frozen=True)
 class CtState:
-    """Symbolic ciphertext state: level ℓ (limbs 0..ℓ live) and scale.
-    ``chain_index`` is the index of the prime the next rescale folds out
-    (== level)."""
+    """Symbolic ciphertext state: level ℓ (limbs 0..ℓ live) and scale."""
 
     level: int
     scale: float
-
-    @property
-    def chain_index(self) -> int:
-        return self.level
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +48,6 @@ class TraceStep:
     stage: str                 # source anchor, e.g. "step2/eps[3]"
     level: int
     scale: float
-    chain_index: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +72,8 @@ class ScaleTracker:
     output state into the next op (states are immutable, so fan-out is
     reuse)."""
 
-    def __init__(self, moduli: Sequence[float], *, rtol: float = DEFAULT_RTOL,
-                 program: str = "trace"):
+    def __init__(self, moduli: Sequence[float], *, program: str = "trace"):
         self.moduli = [float(q) for q in moduli]   # indexed by level
-        self.rtol = rtol
         self.program = program
         self.steps: list = []
         self.diagnostics: list = []
@@ -95,8 +86,7 @@ class ScaleTracker:
 
     def _step(self, op: str, stage: str, st: CtState) -> CtState:
         self.steps.append(TraceStep(op=op, stage=stage, level=st.level,
-                                    scale=st.scale,
-                                    chain_index=st.chain_index))
+                                    scale=st.scale))
         return st
 
     def _q(self, level: int) -> float:
@@ -158,7 +148,7 @@ class ScaleTracker:
                        f"{b.level})",
                        hint="mod-drop the higher addend first")
         denom = max(abs(a.scale), abs(b.scale), 1e-300)
-        if abs(a.scale - b.scale) > self.rtol * denom:
+        if abs(a.scale - b.scale) > RTOL * denom:
             self._emit(
                 "LS002", stage,
                 f"addend scales differ: {a.scale:.6g} vs {b.scale:.6g} "
@@ -167,13 +157,6 @@ class ScaleTracker:
                      "product lands on the same scale")
         out = CtState(min(a.level, b.level), max(a.scale, b.scale))
         return self._step("add", stage, out)
-
-    def cmult(self, st: CtState, pt_scale: float, *, stage: str = "cmult"
-              ) -> CtState:
-        """ct × pt (``CkksEngine.cmult``): the scales multiply, the level
-        holds."""
-        return self._step("mult", stage, CtState(st.level,
-                                                 st.scale * pt_scale))
 
     def hemm(self, a: CtState, b: CtState, *, sigma_scale: float,
              tau_scale: float, eps_scales: Sequence[float],
@@ -226,11 +209,10 @@ def trace_hlt(moduli: Sequence[float], *, level: int, scale: float,
 def trace_hemm(moduli: Sequence[float], *, level: int, scale_a: float,
                scale_b: float, sigma_scale: float, tau_scale: float,
                eps_scales: Sequence[float], omega_scales: Sequence[float],
-               add_fanin: int = 1, rtol: float = DEFAULT_RTOL,
-               program: str = "hemm") -> Trace:
+               add_fanin: int = 1, program: str = "hemm") -> Trace:
     """Trace one HE MM (depth 3) from ``(level, scale_a)`` /
     ``(level, scale_b)``."""
-    t = ScaleTracker(moduli, rtol=rtol, program=program)
+    t = ScaleTracker(moduli, program=program)
     t.hemm(CtState(level, scale_a), CtState(level, scale_b),
            sigma_scale=sigma_scale, tau_scale=tau_scale,
            eps_scales=eps_scales, omega_scales=omega_scales,
@@ -248,31 +230,27 @@ def _hop_scales(hop) -> dict:
                 omega_scales=[ds.scale for ds in hop.ds_omega])
 
 
-def trace_chain(moduli: Sequence[float], hops, *, level: int, scale: float,
-                weight_scale: Optional[float] = None,
-                rtol: float = DEFAULT_RTOL) -> Trace:
+def trace_chain(moduli: Sequence[float], hops, *, level: int,
+                scale: float) -> Trace:
     """Trace a chain Y = X·W1·W2·… (one hemm a hop, depth 3 each): the
     proof at compile time that levels and rescales line up across the
     hops, or the hop where the modulus chain runs out (LS001/LS003).
 
     ``hops``: HeMMPlans or dicts with ``sigma_scale`` / ``tau_scale`` /
     ``eps_scales`` / ``omega_scales``.  Each hop's weight is taken as
-    freshly encrypted at the hop's input level with ``weight_scale``
-    (default ``scale``)."""
-    t = ScaleTracker(moduli, rtol=rtol, program="chain")
+    freshly encrypted at the hop's input level with ``scale``."""
+    t = ScaleTracker(moduli, program="chain")
     state = CtState(level, scale)
-    ws = scale if weight_scale is None else weight_scale
     hop_states = []
     for h, hop in enumerate(hops):
-        state = t.hemm(state, CtState(state.level, ws),
+        state = t.hemm(state, CtState(state.level, scale),
                        **_hop_scales(hop), stage=f"hop[{h}]")
         hop_states.append(state)
     return dataclasses.replace(t.trace(), hop_states=tuple(hop_states))
 
 
-def max_chain_depth(moduli: Sequence[float], hop, *, level: int, scale: float,
-                    weight_scale: Optional[float] = None,
-                    rtol: float = DEFAULT_RTOL) -> int:
+def max_chain_depth(moduli: Sequence[float], hop, *, level: int,
+                    scale: float) -> int:
     """The largest k such that a k-hop chain of ``hop`` (HeMMPlan or dict
     of scales) traces cleanly from ``(level, scale)``: the provable chain
     depth of a parameter set (``level // 3`` for a standard plan, proved
@@ -280,8 +258,7 @@ def max_chain_depth(moduli: Sequence[float], hop, *, level: int, scale: float,
     depth = 0
     while depth <= len(moduli):
         if not trace_chain(moduli, [hop] * (depth + 1), level=level,
-                           scale=scale, weight_scale=weight_scale,
-                           rtol=rtol).ok:
+                           scale=scale).ok:
             return depth
         depth += 1
     return depth

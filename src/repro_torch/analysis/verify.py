@@ -101,8 +101,7 @@ def verify_chain(prog, *, components: bool = True) -> list:
     if diags:
         return diags
     tr = trace_chain(_moduli(prog.ctx), [hp.mm_plan for hp in prog._hops],
-                     level=prog.plan.level, scale=prog.ctx.eng.params.scale,
-                     weight_scale=prog.plan.weight_scale)
+                     level=prog.plan.level, scale=prog.ctx.eng.params.scale)
     diags += list(tr.diagnostics)
     if components:
         for hp in prog._hops:

@@ -135,7 +135,10 @@ class HEContext:
     (``costmodel.SMEM_PER_BLOCK``, 227 KB) the fused kernels may take:
     the cost model picks ``"pallas"`` only where they fit it, and the
     verifier's VM001 checks every fused launch of a compile against it.
-    A launch allocates exactly its footprint, so the default is 1.0.
+    A launch allocates exactly its footprint, so the default is 1.0.  It
+    is the twin of the reference's ``HEContext(vmem_headroom=)``, threaded
+    into every HLTPlan as that one is, so that the reference's
+    over-budget VM001 case has a counterpart on the port.
 
     ``counters`` are monotonic lifetime statistics (not reset by
     ``invalidate``): ``hlt_launches`` counts CompiledHLT calls (one
@@ -870,7 +873,7 @@ class HEMMChainPlan:
     hops' input levels (``level − 3h``: a hemm consumes 3); ``hop_out``
     the (level, scale) ``trace_chain`` predicts at each hop's output,
     which execution meets exactly; ``schedules`` the per-hop schedules
-    (``costmodel.select_chain_schedules`` unless given)."""
+    (``costmodel.select_chain_schedules`` unless one is forced)."""
 
     dims: tuple
     shapes: tuple                       # (m, l, n) per hop
@@ -878,7 +881,6 @@ class HEMMChainPlan:
     level: int                          # the chain's input level
     hop_levels: tuple                   # input level per hop
     hop_out: tuple                      # predicted CtState out of each hop
-    weight_scale: float                 # the weights' scale the trace took
     repack: str                         # "fold" | "explicit"
     hops: tuple                         # HEMMPlan per hop
 
@@ -888,19 +890,9 @@ class HEMMChainPlan:
         return len(self.hops)
 
     @property
-    def depth(self) -> int:
-        """Multiplicative depth: 3 levels a hop."""
-        return 3 * self.k
-
-    @property
     def out_level(self) -> int:
         """Level of the chain's output (``level − 3k``)."""
         return self.hop_out[-1].level
-
-    @property
-    def out_scale(self) -> float:
-        """Scale of the chain's output (as traced)."""
-        return self.hop_out[-1].scale
 
     @property
     def rotations(self) -> int:
@@ -955,9 +947,9 @@ class HEMMChainProgram:
         self.stage_hook: Optional[Callable[[int, str], None]] = None
 
     def encrypt_weights(self, Ws, rng) -> list:
-        """Encrypt W1..Wk at their hops' input levels with
-        ``plan.weight_scale``: the weight states the compile's trace took,
-        so execution meets ``plan.hop_out`` exactly."""
+        """Encrypt W1..Wk at their hops' input levels with the parameter
+        set's scale: the weight states the compile's trace took, so
+        execution meets ``plan.hop_out`` exactly."""
         from repro_torch.core.hemm import encrypt_matrix
         plan = self.plan
         if len(Ws) != plan.k:
@@ -970,7 +962,7 @@ class HEMMChainProgram:
                 raise ValueError(f"weight of shape {W.shape}, the hop "
                                  f"takes {(l, n)}")
             cts.append(encrypt_matrix(self.ctx.eng, self.ctx.keys, W, rng,
-                                      level=lvl, scale=plan.weight_scale))
+                                      level=lvl))
         return cts
 
     def run_hops(self, ctX: Ciphertext, weights) -> list:
@@ -991,13 +983,16 @@ class HEMMChainProgram:
                 raise ValueError(
                     f"hop {h} weight at level {ctW.level}, the chain takes "
                     f"{plan.hop_levels[h]} (encrypt_weights encrypts there)")
-            if self.stage_hook is not None:
+            if self.stage_hook is None:
+                ct = prog(ct, ctW)
+            else:       # the hop programs are memoised and shared
+                saved = prog.stage_hook
                 prog.stage_hook = (lambda name, h=h:
                                    self.stage_hook(h, name))
-            try:
-                ct = prog(ct, ctW)
-            finally:
-                prog.stage_hook = None
+                try:
+                    ct = prog(ct, ctW)
+                finally:
+                    prog.stage_hook = saved
             outs.append(ct)
         return outs
 
@@ -1007,9 +1002,7 @@ class HEMMChainProgram:
 
 def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
                        schedule: Optional[str] = None,
-                       schedules: Optional[Sequence[str]] = None,
-                       rotation_chunk: Optional[int] = None,
-                       weight_scale: Optional[float] = None
+                       rotation_chunk: Optional[int] = None
                        ) -> HEMMChainProgram:
     """Compile a chain (``core/hemm.py`` ``plan_hemm_chain``) into a
     reusable HEMMChainProgram.
@@ -1021,21 +1014,19 @@ def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
     under ``ctx.verify="error"``, ``ValueError`` otherwise.
     ``analysis.max_chain_depth`` names the deepest chain that fits.
 
-    ``schedule`` forces one schedule on every hop, ``schedules`` gives one
-    a hop; with neither, ``costmodel.select_chain_schedules`` picks them
-    (on one device: each hop's ``select_schedule`` pick).  Memoized on the
-    context."""
+    ``schedule`` forces one schedule on every hop; without it,
+    ``costmodel.select_chain_schedules`` picks them (on one device: each
+    hop's ``select_schedule`` pick).  Memoized on the context."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
     eng = ctx.eng
     params = eng.params
     level = params.L if level is None else level
-    ws = params.scale if weight_scale is None else float(weight_scale)
     k = chain.k
 
     trace = trace_chain(eng.ctx.moduli_host, chain.hops, level=level,
-                        scale=params.scale, weight_scale=ws)
-    if level < 3 * k:       # == the trace's LS001/LS003 findings fire
+                        scale=params.scale)
+    if not trace.ok:        # LS001/LS003: input level < 3·k
         if ctx.verify == "error":
             raise VerificationError(trace.diagnostics)
         msgs = "; ".join(str(d) for d in trace.diagnostics
@@ -1044,13 +1035,7 @@ def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
                          f"(3 per hemm hop), got {level}: {msgs}")
 
     if schedule is not None:
-        if schedules is not None:
-            raise ValueError("pass schedule= or schedules=, not both")
         scheds = (schedule,) * k
-    elif schedules is not None:
-        scheds = tuple(schedules)
-        if len(scheds) != k:
-            raise ValueError(f"{len(scheds)} schedules for {k} hops")
     else:
         scheds = select_chain_schedules(
             params,
@@ -1063,7 +1048,7 @@ def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
         _check_schedule(s, rotation_chunk)
 
     memo_key = ("hemm_chain", _StrongKey(chain), scheds, level,
-                rotation_chunk, ws, ctx.verify)
+                rotation_chunk, ctx.verify)
     hit = ctx._compiled.get(memo_key)
     if hit is not None:
         return hit
@@ -1077,7 +1062,7 @@ def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
         shapes=tuple((hp.m, hp.l, hp.n) for hp in chain.hops),
         schedules=scheds, level=level,
         hop_levels=tuple(level - 3 * h for h in range(k)),
-        hop_out=trace.hop_states, weight_scale=ws, repack=chain.repack,
+        hop_out=trace.hop_states, repack=chain.repack,
         hops=tuple(p.plan for p in hop_progs))
     prog = HEMMChainProgram(ctx, chain, plan, hop_progs)
     _verify.enforce(ctx, prog)

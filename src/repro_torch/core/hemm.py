@@ -176,15 +176,14 @@ class ChainRepack:
     is the next hop's σ input as it stands, whatever lies beyond it is
     never read, and no level is spent between hops.
 
-    ``identity=True`` records that fact (``chain_repack`` checks it);
-    ``repack="explicit"`` in ``plan_hemm_chain`` encodes σ∘repack as its
-    own DiagSet — the same matrix, bit for bit, but a distinct operand that
-    costs one arena slot a boundary: the hook for input layouts that are
-    not an identity fold."""
+    ``chain_repack`` checks the hand-off; ``repack="explicit"`` in
+    ``plan_hemm_chain`` encodes σ∘repack as its own DiagSet — the same
+    matrix, bit for bit, but a distinct operand that costs one arena slot
+    a boundary: the hook for input layouts that are not an identity
+    fold."""
     rows: int        # m (carried through the chain)
     cols: int        # n of the previous hop == l of the next
     window: int      # rows·cols slots the previous hop's output fills
-    identity: bool   # column-major layout: the identity fold
 
     def sparse(self) -> SparseMatrix:
         """The re-pack over the next hop's σ domain (m·l × m·l)."""
@@ -220,8 +219,7 @@ def chain_repack(prev: HeMMPlan, nxt: HeMMPlan) -> ChainRepack:
     if nxt.ds_sigma.shape != (prev.m * prev.n, prev.m * prev.n):
         raise ValueError(f"next σ is {nxt.ds_sigma.shape}, the window "
                          f"{prev.m * prev.n}")
-    return ChainRepack(rows=prev.m, cols=prev.n, window=prev.m * prev.n,
-                       identity=True)
+    return ChainRepack(rows=prev.m, cols=prev.n, window=prev.m * prev.n)
 
 
 @dataclasses.dataclass
@@ -237,10 +235,6 @@ class HeMMChainPlan:
     @property
     def k(self) -> int:
         return len(self.hops)
-
-    @property
-    def total_rotations(self) -> int:
-        return sum(h.total_rotations for h in self.hops)
 
 
 def plan_hemm_chain(eng: CkksEngine, dims, scale: Optional[float] = None,

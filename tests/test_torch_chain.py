@@ -213,13 +213,14 @@ def test_chain_launch_and_arena_accounting():
     and no encrypt; hops of one shape share a plan; a second compile is
     the memoized program and builds nothing; the explicit re-pack twin
     costs one arena slot a boundary and gives the same residues; Step 2
-    stores 2 hoisting products a hop, not 2·l."""
+    stores 2 hoisting products a hop, not 2·l; a chain call leaves a
+    stage hook set on a hop's shared program as it was."""
     ctx = HEContext(CkksEngine(FAME_CHAIN_SETS["fame-s-chain"], device=CPU),
                     verify="error")
     eng = ctx.eng
     chain = plan_hemm_chain(eng, (3, 3, 3, 3))
     assert chain.hops[0] is chain.hops[1]
-    assert chain.repacks[0].identity and chain.repacks[0].window == 9
+    assert chain.repacks[0].window == 9
     np.testing.assert_array_equal(chain.repacks[0].matrix(), np.eye(9))
     ctx.keygen(np.random.default_rng(0), rot_steps=chain.rot_steps)
     prog = compile_hemm_chain(ctx, chain)
@@ -238,10 +239,19 @@ def test_chain_launch_and_arena_accounting():
     w_cts = prog.encrypt_weights(Ws, rng)
     before = dict(ctx.counters)
     d0, e0 = eng.op_counts["decrypts"], eng.op_counts["encrypts"]
+    # a hook on a hop's memoised HEMMProgram survives the chain's calls
+    marks, hooked = [], prog._hops[0]
+    hooked.stage_hook = marks.append
+    prog.stage_hook = lambda h, name: None
     outs = prog.run_hops(ctX, w_cts)
-    assert ctx.counters["hlt_launches"] - before["hlt_launches"] == 2 * chain.k
+    prog.stage_hook = None
+    prog.run_hops(ctX, w_cts)
+    assert hooked.stage_hook == marks.append and len(marks) > 0
+    hooked.stage_hook = None
+    assert ctx.counters["hlt_launches"] - before["hlt_launches"] == \
+        2 * 2 * chain.k
     assert ctx.counters["program_launches"] - before["program_launches"] == \
-        chain.k + 1
+        2 * (chain.k + 1)
     assert (eng.op_counts["decrypts"], eng.op_counts["encrypts"]) == (d0, e0)
     for a, b in zip(outs, prog_x.run_hops(ctX, w_cts), strict=True):
         assert_ct_equal(a, b)
