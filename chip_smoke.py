@@ -120,9 +120,30 @@ Phases, each printing its lines before the last:
    the same weight ciphertexts, the raw error printed; a 6-hop chain
    (level 18 needed) refused with ``VerificationError`` (LS001/LS003
    only) under ``"error"`` and ``ValueError`` under ``"warn"``, the
-   arena, memo, counters and launches unchanged.  Phases 3, 3b, 3c and 3d
-   each run ``verify_program`` on their program: no error-severity
-   diagnostic;
+   arena, memo, counters and launches unchanged.  Phases 3, 3b, 3c, 3d
+   and 3e each run ``verify_program`` on their programs: no
+   error-severity diagnostic;
+3e. serve — multi-tenant secure serving at Set-B through
+   ``build_secure_serving`` (``ModelConfig(secure_layers=(0,))``, W0
+   128×128 from a numpy seed with entries of standard deviation 1/√128,
+   tile 64, ``he_max_sessions=2``, ``verify="error"``), on the pool's
+   ``CkksEngine(SET_B, datapath="pallas")``.  Tenants A and B each
+   submit 3 requests a step, two of them sharing a prompt: two groups,
+   each a (3, 2, 2) block MM of 768 products.  Step 1 compiles; step 2
+   (the rows negated) hits the program cache, and (y(x) − y(−x))/2 must
+   be within 0.05 of x·W0 (the raw error printed); step 3 (B and C)
+   creates tenant C; step 4 (B and C) evicts A, the coldest arena; step 5
+   (A and B) recompiles A with its keys kept; step 6 runs A's requests of
+   step 5 again on the same ciphertexts with one program per request
+   (C evicted).  Every step's launches, cache hits / misses / stale drops
+   and arena evictions are checked against the LRU policy's prediction,
+   each all-hit step's program stage against ``expected_launches``, the
+   batched rows array-equal to the per-request ones and to a loop of
+   unbatched tile hemms (``SecureMatmulEngine.matmul_encrypted``) on the
+   same ciphertexts, and one of A's result tiles must not decrypt under
+   B's keys.  Printed: each flush's stage times (sessions, then encrypt /
+   program / decrypt a group), its peak device memory, and the memory
+   allocated and ``pool.live_arena_bytes`` around each eviction;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
@@ -134,8 +155,9 @@ Phases, each printing its lines before the last:
    ``cuda`` and on ``cpu``, every hop's c0 and c1 array-equal.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on the main
-path, and ``launches_blockmm`` / ``launches_chain`` from the counted
-calls of phases 3b and 3d) and, last, ``{"ok": true, "device":
+path, ``launches_blockmm`` / ``launches_chain`` from the counted calls of
+phases 3b and 3d, and ``launches_serve`` from phase 3e's step 2, the
+first flush with every program cached) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
 imports nothing of JAX or of the ``repro`` package.
 """
@@ -2376,6 +2398,291 @@ def cpu_vs_cuda_chain():
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: multi-tenant secure serving at Set-B
+# ---------------------------------------------------------------------------
+
+
+def key_bytes(keys) -> int:
+    """Device bytes of one tenant's keyset (secret, relinearisation key
+    and every Galois key)."""
+    ts = [keys.s_eval, keys.evk_mult.k0, keys.evk_mult.k1]
+    for k in keys.galois.values():
+        ts += [k.k0, k.k1]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def serve_rows(rng, n: int) -> list:
+    """One tenant's ``SERVE_REQUESTS`` activation rows: the first two
+    share a prompt (equal content, separate arrays)."""
+    x = rng.uniform(-1, 1, n)
+    return [x, x.copy()] + [rng.uniform(-1, 1, n)
+                            for _ in range(SERVE_REQUESTS - 2)]
+
+
+def serve_flush(serving, calls, tag: str):
+    """Submit ``calls`` and flush once, the device synchronised at each
+    stage the batcher marks; print the stage times and memory.  Returns
+    (rows, StepStats, the launch counts over the whole flush, the program
+    stage's launches of each group, the flush's peak device memory)."""
+    import torch
+    from repro_torch.kernels import ops
+    bat = serving.batcher
+    marks, counts = [], []
+
+    def hook(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+        counts.append(ops.launch_counts())
+
+    for c in calls:
+        bat.submit(c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    bat.stage_hook = hook
+    t0 = time.perf_counter()
+    try:
+        res = bat.flush()
+    finally:
+        bat.stage_hook = None
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    st = bat.steps[-1]
+    prev = t0
+    groups, program = [], []
+    for i, (name, t) in enumerate(marks):
+        if name == "encrypt":
+            groups.append({})
+        if name != "sessions":
+            groups[-1][name] = (t - prev) * 1e3
+        if name == "program":
+            program.append({k: counts[i][k] - counts[i - 1][k]
+                            for k in counts[i]})
+        prev = t
+    log(f"[serve] {tag}: {st.n_calls} calls, {st.n_groups} groups, program "
+        f"launches {st.program_launches}, HLT launches {st.hlt_launches}, "
+        f"tiles {st.n_tiles} ({st.n_uniq_tiles} unique), cache hits "
+        f"{st.cache_hits} misses {st.cache_misses}; flush {total:.3f} ms "
+        f"(sessions {(marks[0][1] - t0) * 1e3:.3f}; per group ms "
+        f"{[fmt(g) for g in groups]}); peak device memory "
+        f"{peak / 1e9:.2f} GB; memory allocated after "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, live arenas "
+        f"{serving.pool.live_arena_bytes / 1e9:.2f} GB")
+    return res, st, launches, program, peak
+
+
+def phase_serve(params) -> dict:
+    """Multi-tenant secure serving at Set-B through
+    ``build_secure_serving`` (``ModelConfig(secure_layers=(0,))``, W0
+    ``SERVE_DIM``², tile ``BLOCKMM_TILE``, ``he_max_sessions``
+    ``SERVE_MAX_LIVE``, ``verify="error"``): tenants A, B and C, each
+    submitting ``SERVE_REQUESTS`` requests a step, two of them sharing a
+    prompt.  Steps: A + B (compile), A + B on −x (cache hits; the sign
+    check), B + C (C's keygen), B + C (A, the coldest arena, evicted),
+    A + B (A recompiled, keys kept), A's requests of that step again with
+    one program per request on the same ciphertexts (C evicted); then
+    A's requests as a loop of unbatched tile hemms on the same
+    ciphertexts, and one of A's result tiles under B's keys.  Returns the
+    launches of the first all-hit step's flush."""
+    import numpy as np
+    import torch
+    from repro_torch.models import ModelConfig
+    from repro_torch.serve import SecureCall, ServeConfig, build_secure_serving
+
+    n, R = SERVE_DIM, SERVE_REQUESTS
+    rng = np.random.default_rng(20264)
+    W0 = rng.standard_normal((n, n)) / np.sqrt(n)
+    cfg = ModelConfig(name="serve-set-b", family="dense", num_layers=1,
+                      d_model=n, num_heads=2, d_ff=4 * n, vocab_size=256,
+                      secure_layers=(0,))
+    scfg = ServeConfig(he_tile=BLOCKMM_TILE, he_max_sessions=SERVE_MAX_LIVE)
+    serving = build_secure_serving(cfg, scfg, {0: W0}, rng, he_params=params,
+                                   verify="error")
+    pool, cache, bat = serving.pool, serving.cache, serving.batcher
+    if pool.eng.datapath != "pallas":
+        raise AssertionError("the serving pool's engine is not on "
+                             "\"pallas\"")
+
+    # each arena eviction: memory allocated and live arena bytes around it
+    evicted = []
+    evict = pool._evict_cold
+
+    def traced_evict():
+        before = {t: s.stats.arena_evictions
+                  for t, s in pool._sessions.items()}
+        torch.cuda.synchronize()
+        m0, a0 = torch.cuda.memory_allocated(), pool.live_arena_bytes
+        evict()
+        who = [t for t, s in pool._sessions.items()
+               if s.stats.arena_evictions > before[t]]
+        if not who:
+            return
+        torch.cuda.synchronize()
+        m1, a1 = torch.cuda.memory_allocated(), pool.live_arena_bytes
+        evicted.append(who)
+        freed, dropped = m0 - m1, a0 - a1
+        log(f"[serve] arena eviction of {who}: memory allocated "
+            f"{m0 / 1e9:.3f} -> {m1 / 1e9:.3f} GB (freed {freed / 1e9:.3f});"
+            f" pool.live_arena_bytes {a0 / 1e9:.3f} -> {a1 / 1e9:.3f} GB "
+            f"(dropped {dropped / 1e9:.3f}); "
+            + ("the evicted operands stay resident: the stale program in "
+               "HEProgramCache still holds them" if freed < dropped / 2
+               else "the evicted operands were freed"))
+
+    pool._evict_cold = traced_evict
+
+    def calls(tenant, rows, first):
+        return [SecureCall(first + r, 0, x, tenant=tenant)
+                for r, x in enumerate(rows)]
+
+    def check(st, tag, groups, hits, misses, evictions, stale, who=None,
+              per_request=False):
+        """The step's StepStats and the pool's and cache's eviction
+        counts as the LRU policy predicts them (``who``: the tenants whose
+        arena this step evicted)."""
+        launches = R * groups if per_request else groups
+        got = (st.n_groups, st.program_launches, st.hlt_launches,
+               st.cache_hits, st.cache_misses, pool.evictions,
+               cache.evictions)
+        want = (groups, launches, 2 * launches, hits, misses, evictions,
+                stale)
+        if got != want or not st.n_uniq_tiles < st.n_tiles:
+            raise AssertionError(f"serve {tag}: (groups, launches, HLT "
+                                 f"launches, hits, misses, arena evictions, "
+                                 f"stale programs dropped) {got}, expected "
+                                 f"{want}; tiles {st.n_tiles} unique "
+                                 f"{st.n_uniq_tiles}")
+        if who is not None and evicted[-1] != who:
+            raise AssertionError(f"serve {tag}: evicted {evicted[-1]}, "
+                                 f"expected {who}")
+
+    def program_launches_exact(program, tag):
+        """Each group's program stage: the block MM's launches for its
+        l·R·gl·gn tile products, as ``expected_launches`` counts them."""
+        sess = pool._sessions["B"]
+        level = sess.linears[0]._w_tiles[0][0].level
+        digits = len(sess.ctx.eng.tools.digit_bases(level - 2))
+        g = -(-n // BLOCKMM_TILE)
+        want = expected_launches(True, BLOCKMM_TILE * R * g * g, digits)
+        for g in program:
+            if g != want:
+                raise AssertionError(f"serve {tag}: a group's program "
+                                     f"launched {g}; expected {want}")
+
+    t0 = time.perf_counter()
+    rows = {t: serve_rows(rng, n) for t in "AB"}
+    res1, st, _, _, peak1 = serve_flush(
+        serving, calls("A", rows["A"], 0) + calls("B", rows["B"], R),
+        "step 1, A + B (compile)")
+    check(st, "step 1", 2, 0, 2, 0, 0)
+    sa, sb = pool._sessions["A"], pool._sessions["B"]
+    keys_a = sa.keys
+    log(f"[serve] keys a tenant {key_bytes(keys_a) / 1e9:.3f} GB "
+        f"({len(keys_a.galois)} Galois keys); arena a tenant "
+        f"{sa.ctx.arena.nbytes / 1e9:.3f} GB; cost model \"{sa.engine.schedule}\"")
+    if sa.engine.schedule != "pallas":
+        raise AssertionError(f"serve: the cost model picked "
+                             f"{sa.engine.schedule}")
+
+    res2, st, launches, program, _ = serve_flush(
+        serving, calls("A", [-x for x in rows["A"]], 0)
+        + calls("B", [-x for x in rows["B"]], R),
+        "step 2, A + B on -x (cache hits)")
+    check(st, "step 2", 2, 2, 0, 0, 0)
+    program_launches_exact(program, "step 2")
+    log(f"[serve] step 2 launches {json.dumps(launches)}")
+    raw = err = 0.0
+    for t, first in (("A", 0), ("B", R)):
+        for r, x in enumerate(rows[t]):
+            yp, yn = res1[(first + r, 0)], res2[(first + r, 0)]
+            if yp.shape != (n,) or not np.all(np.isfinite(yp)):
+                raise AssertionError("serve: output row not finite / "
+                                     "mis-shaped")
+            raw = max(raw, float(np.abs(yp - x @ W0).max()))
+            err = max(err, float(np.abs((yp - yn) / 2 - x @ W0).max()))
+    log(f"[serve] max|y - x·W0| = {raw:.3e} over {2 * R} rows; "
+        f"sign-combined with -x: {err:.3e} (limit {TOL})")
+    if not err <= TOL:
+        raise AssertionError(f"serving output off by {err}")
+
+    rows3 = {t: serve_rows(rng, n) for t in "BC"}
+    _, st, _, _, _ = serve_flush(
+        serving, calls("B", rows3["B"], 0) + calls("C", rows3["C"], R),
+        "step 3, B + C (C's keygen)")
+    check(st, "step 3", 2, 1, 1, 0, 0)
+    _, st, _, program, _ = serve_flush(
+        serving, calls("B", rows3["B"], 0) + calls("C", rows3["C"], R),
+        "step 4, B + C (A's arena evicted)")
+    check(st, "step 4", 2, 2, 0, 1, 0, who=["A"])
+    program_launches_exact(program, "step 4")
+
+    rows5 = {t: serve_rows(rng, n) for t in "AB"}
+    a_calls = calls("A", rows5["A"], 0)
+    state = bat.rng.bit_generator.state
+    res5, st, _, _, _ = serve_flush(
+        serving, a_calls + calls("B", rows5["B"], R),
+        "step 5, A + B (A recompiled)")
+    check(st, "step 5", 2, 1, 1, 1, 1)
+    if pool._sessions["A"].keys is not keys_a or sa.stats.keygens != 1:
+        raise AssertionError("serve: tenant A re-keyed, or its stale "
+                             "program was not dropped")
+
+    # A's group again, one program per request, on the same ciphertexts
+    bat.rng.bit_generator.state = state
+    bat.batch_requests = False
+    try:
+        res6, st, _, _, _ = serve_flush(
+            serving, a_calls, "step 6, A per request (C's arena evicted)")
+    finally:
+        bat.batch_requests = True
+    check(st, "step 6", 1, 2, 1, 2, 1, who=["C"], per_request=True)
+    for c in a_calls:
+        if not np.array_equal(res6[(c.request_id, 0)],
+                              res5[(c.request_id, 0)]):
+            raise AssertionError("serve: per-request row differs from the "
+                                 "batched one")
+
+    # ... and as a loop of unbatched tile hemms (SecureLinear's engine)
+    bat.rng.bit_generator.state = state
+    lin = sa.linears[0]
+    gl, gn = len(lin._w_tiles), len(lin._w_tiles[0])
+    A_tiles, _, _ = bat._encrypt_group(sa, a_calls, gl)
+    tl = time.perf_counter()
+    out = None
+    for r, c in enumerate(a_calls):
+        out = sa.engine.matmul_encrypted([A_tiles[r]], lin._w_tiles,
+                                         batched=False)
+        y = np.concatenate([sa.decrypt_row(out[0][j], BLOCKMM_TILE)
+                            for j in range(gn)])
+        if not np.array_equal(y, res5[(c.request_id, 0)]):
+            raise AssertionError("serve: the loop's row differs from the "
+                                 "batched one")
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - tl) * 1e3
+    want = a_calls[-1].x @ W0
+    under_b = np.concatenate([sb.decrypt_row(out[0][j], BLOCKMM_TILE)
+                              for j in range(gn)])
+    iso = float(np.abs(under_b - want).max())
+    log(f"[serve] batched rows array-equal to the per-request programs' "
+        f"and to a loop of {R * gl * gn} unbatched tile hemms "
+        f"({loop_ms:.3f} ms); A's result under B's keys off by {iso:.3e}")
+    if not iso > 1.0:
+        raise AssertionError(f"serve: tenant B's keys decrypt tenant A's "
+                             f"result (error {iso})")
+    for tenant, sess in pool._sessions.items():
+        if sess.ctx._compiled:
+            check_verified(f"serve {tenant}", next(
+                p for p in sess.ctx._compiled.values()
+                if type(p).__name__ == "BlockMMProgram"))
+    log(f"[serve] pool {json.dumps(pool.report())}; cache "
+        f"{json.dumps(cache.report())}; first flush peak "
+        f"{peak1 / 1e9:.2f} GB; steps {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: whole program on the kernels vs on the plain versions
 # ---------------------------------------------------------------------------
 
@@ -2524,6 +2831,13 @@ BLOCKMM_SHAPES = ((100, 120), (120, 70))
 CHAIN_DIMS = (128,) * 5
 REJECT_HOPS = 6
 
+#: the serving phase: the secure layer's W0 is SERVE_DIM² (a (R, 2, 2) grid
+#: of block-MM tiles a group), SERVE_REQUESTS requests a tenant a step, at
+#: most SERVE_MAX_LIVE tenant arenas
+SERVE_DIM = 128
+SERVE_REQUESTS = 3
+SERVE_MAX_LIVE = 2
+
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
@@ -2599,12 +2913,18 @@ def main() -> int:
     log(f"[chain] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    serve = phase_serve(SET_B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
         dict(r.entry(launches[name]), launches_blockmm=blockmm[name],
-             launches_chain=chain[name])
+             launches_chain=chain[name], launches_serve=serve[name])
         for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
