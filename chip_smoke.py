@@ -144,6 +144,27 @@ Phases, each printing its lines before the last:
    B's keys.  Printed: each flush's stage times (sessions, then encrypt /
    program / decrypt a group), its peak device memory, and the memory
    allocated and ``pool.live_arena_bytes`` around each eviction;
+3f. lm — the dense LM serving path on ``internlm2-1.8b`` at full width
+   (24 layers, d 2048, 16 heads, 8 KV heads, d_ff 8192, vocab 92544,
+   bf16; random weights from a seeded generator on the card).  First
+   ``repro_torch.launch.serve``'s ``main`` (4 requests of 8 new tokens,
+   4 slots), each prefill and decode step timed, then prefill of 16
+   tokens + 2 decode steps (batch 2) against one ``forward`` within the
+   reference test's 6e-2.  Then layer 0 served under HE at Set-B:
+   ``build_secure_serving`` (W0 2048 × 64 from a numpy seed, x·W0 of
+   standard deviation 10 for an embedding row x, tile 64,
+   ``verify="error"``) behind ``ContinuousBatcher(ServeConfig(max_batch=2,
+   max_len=64, he_tile=64))``; three requests (tenants A, B, A) of 2
+   tokens: steps 1–2 flush one (1, 32, 1) group of 2048 products a
+   tenant, steps 3–4 A's second request on A's cached program.  Checked:
+   each step's program launches = groups = tenants in flight, cache hits
+   and misses, step 2's groups' program stage against
+   ``expected_launches`` for 2048 products, the tokens equal to a
+   plaintext ``ContinuousBatcher`` run of the same prompts, step 1's rows
+   against the same rows on −x ((y(x) − y(−x))/2 within 5 % of
+   max|x·W0|; the raw error printed), step 3's row array-equal to a loop
+   of 32 unbatched tile hemms on the same ciphertexts; each flush's stage
+   times and peak device memory printed;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
@@ -152,12 +173,17 @@ Phases, each printing its lines before the last:
    ``fame-m-rt`` block MM (tile 4, A 6×5 · B 5×7, a (2, 2, 2) grid),
    batched and looped, on ``cuda`` and on ``cpu``, all array-equal; and
    the ``fame-m-chain`` depth-3 chain (4×4 · 4×4 · 4×4 · 4×4) on
-   ``cuda`` and on ``cpu``, every hop's c0 and c1 array-equal.
+   ``cuda`` and on ``cpu``, every hop's c0 and c1 array-equal; and the
+   ``internlm2-1.8b`` smoke config in float32 on ``cuda`` and on ``cpu``
+   from the same weights: ``forward`` logits within 1e-4, and a
+   ``ContinuousBatcher`` with a toy secure layer (logN 6, tile 4, tenants
+   A, B, A): tokens identical, secure rows and StepStats equal.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on the main
 path, ``launches_blockmm`` / ``launches_chain`` from the counted calls of
-phases 3b and 3d, and ``launches_serve`` from phase 3e's step 2, the
-first flush with every program cached) and, last, ``{"ok": true, "device":
+phases 3b and 3d, ``launches_serve`` from phase 3e's step 2, the
+first flush with every program cached, and ``launches_lm`` from phase
+3f's secure step 2, likewise) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
 imports nothing of JAX or of the ``repro`` package.
 """
@@ -167,6 +193,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -174,6 +201,7 @@ import time
 import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12        # the data sheet's non-tensor 32-bit rate
 TOL = 0.05                     # decrypted-product bound (the reference tests')
@@ -2420,10 +2448,18 @@ def serve_rows(rng, n: int) -> list:
 
 
 def serve_flush(serving, calls, tag: str):
-    """Submit ``calls`` and flush once, the device synchronised at each
-    stage the batcher marks; print the stage times and memory.  Returns
-    (rows, StepStats, the launch counts over the whole flush, the program
-    stage's launches of each group, the flush's peak device memory)."""
+    """Submit ``calls`` and flush once (``traced_flush``)."""
+    for c in calls:
+        serving.batcher.submit(c)
+    return traced_flush(serving, f"[serve] {tag}", serving.batcher.flush)
+
+
+def traced_flush(serving, tag: str, flush):
+    """Run ``flush`` (the batcher's flush, or the original one where it is
+    wrapped) with the device synchronised at each stage the batcher marks;
+    print the stage times and memory after ``tag``.  Returns (rows, StepStats, the launch
+    counts over the whole flush, the program stage's launches of each
+    group, the flush's peak device memory)."""
     import torch
     from repro_torch.kernels import ops
     bat = serving.batcher
@@ -2434,15 +2470,13 @@ def serve_flush(serving, calls, tag: str):
         marks.append((name, time.perf_counter()))
         counts.append(ops.launch_counts())
 
-    for c in calls:
-        bat.submit(c)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     bat.stage_hook = hook
     t0 = time.perf_counter()
     try:
-        res = bat.flush()
+        res = flush()
     finally:
         bat.stage_hook = None
     torch.cuda.synchronize()
@@ -2461,7 +2495,7 @@ def serve_flush(serving, calls, tag: str):
             program.append({k: counts[i][k] - counts[i - 1][k]
                             for k in counts[i]})
         prev = t
-    log(f"[serve] {tag}: {st.n_calls} calls, {st.n_groups} groups, program "
+    log(f"{tag}: {st.n_calls} calls, {st.n_groups} groups, program "
         f"launches {st.program_launches}, HLT launches {st.hlt_launches}, "
         f"tiles {st.n_tiles} ({st.n_uniq_tiles} unique), cache hits "
         f"{st.cache_hits} misses {st.cache_misses}; flush {total:.3f} ms "
@@ -2683,6 +2717,359 @@ def phase_serve(params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the dense LM serving path, internlm2-1.8b at full width
+# ---------------------------------------------------------------------------
+
+
+def timed_calls(fn, ms: list):
+    """``fn`` wrapped to append each call's milliseconds (the device
+    synchronised before and after) to ``ms``."""
+    import torch
+
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def serve_vs_forward(cfg, params, tokens) -> list:
+    """Prefill of all but the last 2 ``tokens`` and two decode steps
+    against one ``forward`` over them all: finite logits of the right
+    shape; per step (max|diff|, max of |diff| / (LM_TOL + LM_TOL·|logit|),
+    max|logit|), a ratio above 1 being outside the reference test's
+    bound."""
+    import torch
+    from repro_torch.models import transformer as tf
+    B, S = tokens.shape[0], tokens.shape[1] - 2
+    full, _ = tf.forward(cfg, params, tokens)
+    cache = tf.init_cache(cfg, B, S + 8)
+    lg, cache = tf.prefill(cfg, params, tokens[:, :S], cache)
+    pairs = [(lg, full[:, S - 1])]
+    for i in range(2):
+        lg, cache = tf.decode_step(cfg, params, tokens[:, S + i:S + i + 1],
+                                   cache, S + i)
+        pairs.append((lg, full[:, S + i]))
+    out = []
+    for got, want in pairs:
+        got = got[:, 0]
+        if got.shape != (B, cfg.vocab_size) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"lm: logits {tuple(got.shape)} not finite "
+                                 f"or mis-shaped")
+        d = (got - want).abs()
+        out.append((float(d.max()),
+                    float((d / (LM_TOL + LM_TOL * want.abs())).max()),
+                    float(want.abs().max())))
+    return out
+
+
+def lm_forward_check(cfg, params) -> None:
+    """Prefill of ``LM_CHECK_S`` tokens and two decode steps (batch 2)
+    against one ``forward`` (``serve_vs_forward``) on the same weights in
+    float32, which must be within the reference test's ``LM_TOL``, and as
+    served in bfloat16, whose gap is printed: 24 layers of bf16 rounding
+    take a few of the 185088 logits just past that bound (PERF.md §6)."""
+    import torch
+    B, S = 2, LM_CHECK_S
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 2), generator=gen,
+                           device=dev)
+    f32 = _to(params, torch.float32)
+    got = {"float32": serve_vs_forward(dataclasses.replace(cfg, dtype="float32"), f32,
+                                       tokens)}
+    del f32
+    got[cfg.dtype] = serve_vs_forward(cfg, params, tokens)
+    for dtype, steps in got.items():
+        log(f"[lm] {dtype}: prefill {S} + 2 decode steps vs forward (B {B}):"
+            f" max|diff| {['%.3e' % e for e, _, _ in steps]}, ratio to "
+            f"{LM_TOL} + {LM_TOL}·|logit| {['%.3f' % r for _, r, _ in steps]}"
+            f" (max|logit| {max(m for _, _, m in steps):.3f})")
+    if not all(r <= 1 for _, r, _ in got["float32"]):
+        raise AssertionError(f"lm: float32 serve path off forward: "
+                             f"{got['float32']}")
+
+
+def lm_plaintext():
+    """``launch/serve.py``'s ``main`` at full width on the card, its prefill
+    and decode calls timed; then ``lm_forward_check`` on its weights.
+    Returns (cfg, params)."""
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tf
+    prefill_ms, decode_ms = [], []
+    orig = tf.prefill, tf.decode_step
+    tf.prefill = timed_calls(orig[0], prefill_ms)
+    tf.decode_step = timed_calls(orig[1], decode_ms)
+    t0 = time.perf_counter()
+    try:
+        b = launch_serve.main(["--arch", LM_ARCH, "--requests",
+                               str(LM_REQUESTS), "--max-new",
+                               str(LM_MAX_NEW)])
+    finally:
+        tf.prefill, tf.decode_step = orig
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    cfg, params = b.cfg, b.params
+    want = [LM_MAX_NEW + 1] * LM_REQUESTS
+    got = [len(b.results[r]) for r in sorted(b.results)]
+    if got != want or not all(0 <= t < cfg.vocab_size
+                              for r in b.results.values() for t in r):
+        raise AssertionError(f"lm: tokens per request {got}, expected {want}")
+    if len(prefill_ms) != LM_REQUESTS or len(decode_ms) != LM_MAX_NEW:
+        raise AssertionError(f"lm: {len(prefill_ms)} prefills and "
+                             f"{len(decode_ms)} decode steps")
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads ({cfg.kv_heads} KV), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} G "
+        f"parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    log(f"[lm] launch/serve.py main: {LM_REQUESTS} requests, "
+        f"{len(decode_ms)} decode steps (batch {b.scfg.max_batch}) in "
+        f"{total:.1f} s with weight init; prefill ms a request "
+        f"{['%.3f' % t for t in prefill_ms]}; ms a decode step "
+        f"{['%.3f' % t for t in decode_ms]} (median "
+        f"{sorted(decode_ms)[len(decode_ms) // 2]:.3f})")
+    lm_forward_check(cfg, params)
+    return cfg, params
+
+
+def _to(tree, where):
+    """Every tensor of a parameter tree ``.to(where)``: a device or a
+    dtype."""
+    if isinstance(tree, dict):
+        return {k: _to(v, where) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, where) for v in tree]
+    return tree.to(where)
+
+
+def lm_secure(cfg0, params, he_params) -> dict:
+    """Layer 0 of the full-width model served under HE at Set-B: W0
+    (d_model × ``LM_SECURE_OUT``, one output tile) from a numpy seed,
+    scaled so that x·W0 has standard deviation ``LM_SECURE_STD`` for an
+    embedding row x; ``build_secure_serving`` (tile ``BLOCKMM_TILE``,
+    ``verify="error"``) behind a ``ContinuousBatcher`` of 2 slots.  Three
+    requests (tenants A, B, A) of ``LM_SECURE_MAX_NEW`` tokens: steps 1–2
+    flush one (1, 32, 1) group a tenant (2048 products each), steps 3–4
+    A's second request alone on A's cached program.  Returns the launches
+    of step 2's flush."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import (ContinuousBatcher, SecureCall,
+                                   ServeConfig, build_secure_serving)
+
+    cfg = dataclasses.replace(cfg0, secure_layers=(0,))
+    d, t = cfg.d_model, BLOCKMM_TILE
+    rng = np.random.default_rng(20266)
+    x_std = 1.0 / np.sqrt(cfg.vocab_size)     # dense_init of the embedding
+    W0 = rng.standard_normal((d, LM_SECURE_OUT)) * (
+        LM_SECURE_STD / (np.sqrt(d) * x_std))
+    scfg = ServeConfig(max_batch=2, max_len=64, he_tile=t)
+    serving = build_secure_serving(cfg, scfg, {0: W0}, rng,
+                                   he_params=he_params, verify="error")
+    pool, cache, bat = serving.pool, serving.cache, serving.batcher
+    if pool.eng.datapath != "pallas":
+        raise AssertionError("the serving pool's engine is not on "
+                             "\"pallas\"")
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in LM_SECURE_PROMPTS]
+    b = ContinuousBatcher(cfg, scfg, params, secure=serving)
+    for p, tenant in zip(prompts, LM_SECURE_TENANTS):
+        b.submit(p, LM_SECURE_MAX_NEW, tenant=tenant)
+
+    flushes = []
+    real_flush = bat.flush
+
+    def flush():
+        calls = list(bat._pending)
+        state = bat.rng.bit_generator.state
+        res, st, launches, program, peak = traced_flush(
+            serving, f"[lm] step {len(flushes) + 1}", real_flush)
+        flushes.append(dict(calls=calls, state=state, res=res, st=st,
+                            launches=launches, program=program, peak=peak))
+        return res
+
+    bat.flush = flush
+    step_ms = []
+    t0 = time.perf_counter()
+    try:
+        while True:
+            ts = time.perf_counter()
+            if not b.step():
+                break
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    finally:
+        bat.flush = real_flush
+    log(f"[lm] secure serving: {len(step_ms)} steps in "
+        f"{time.perf_counter() - t0:.1f} s; ms a step (flush + decode) "
+        f"{['%.1f' % x for x in step_ms]}")
+
+    # each step: one program a tenant in flight; hits and misses as the
+    # cache predicts (step 1 compiles A and B, then every group hits)
+    want = [(2, 0, 2), (2, 2, 0), (1, 1, 0), (1, 1, 0)]
+    got = []
+    for f in flushes:
+        st = f["st"]
+        tenants = len({c.tenant for c in f["calls"]})
+        if not st.program_launches == st.n_groups == tenants or \
+                st.hlt_launches != 2 * st.n_groups:
+            raise AssertionError(f"lm: {st}")
+        got.append((st.n_groups, st.cache_hits, st.cache_misses))
+    if got != want:
+        raise AssertionError(f"lm: (groups, hits, misses) a step {got}, "
+                             f"expected {want}")
+    sa = pool._sessions["A"]
+    lin = sa.linears[0]
+    gl, gn = len(lin._w_tiles), len(lin._w_tiles[0])
+    level = lin._w_tiles[0][0].level
+    digits = len(sa.ctx.eng.tools.digit_bases(level - 2))
+    want_prog = expected_launches(True, t * gl * gn, digits)
+    for g in flushes[1]["program"]:
+        if g != want_prog:
+            raise AssertionError(f"lm step 2: a group's program launched "
+                                 f"{g}; expected {want_prog}")
+    log(f"[lm] grid (1, {gl}, {gn}) a request, {t * gl * gn} products a "
+        f"group; step 2's groups launched exactly {json.dumps(want_prog)}; "
+        f"keys a tenant {key_bytes(sa.keys) / 1e9:.3f} GB, arena "
+        f"{sa.ctx.arena.nbytes / 1e9:.3f} GB; peak a flush "
+        f"{['%.2f' % (f['peak'] / 1e9) for f in flushes]} GB")
+
+    # the secure layer is a side output: the tokens of a plaintext run
+    plain = ContinuousBatcher(cfg0, scfg, params)
+    for p in prompts:
+        plain.submit(p, LM_SECURE_MAX_NEW)
+    while plain.step():
+        pass
+    if plain.results != b.results:
+        raise AssertionError(f"lm: secure run's tokens {b.results} differ "
+                             f"from the plaintext run's {plain.results}")
+
+    # error: every row raw; step 1's rows against the same rows negated
+    raw = 0.0
+    for f in flushes:
+        for c in f["calls"]:
+            y = f["res"][(c.request_id, 0)]
+            if y.shape != (LM_SECURE_OUT,) or not np.all(np.isfinite(y)):
+                raise AssertionError("lm: output row not finite / "
+                                     "mis-shaped")
+            raw = max(raw, float(np.abs(y - c.x @ W0).max()))
+    for c in flushes[0]["calls"]:
+        bat.submit(SecureCall(c.request_id, 0, -c.x, c.tenant))
+    neg, _, _, _, _ = traced_flush(serving, "[lm] step 1's rows on -x",
+                                   bat.flush)
+    err = scale = 0.0
+    for c in flushes[0]["calls"]:
+        want_y = c.x @ W0
+        y = (flushes[0]["res"][(c.request_id, 0)]
+             - neg[(c.request_id, 0)]) / 2
+        err = max(err, float(np.abs(y - want_y).max()))
+        scale = max(scale, float(np.abs(want_y).max()))
+    log(f"[lm] max|x·W0| {scale:.3f} (std {LM_SECURE_STD} by design); raw "
+        f"max|y - x·W0| {raw:.3e} over every row; sign-cancelled with -x "
+        f"{err:.3e} ({err / scale:.3%} of max|x·W0|, limit "
+        f"{LM_ERR_SHARE:.0%})")
+    if not err <= LM_ERR_SHARE * scale:
+        raise AssertionError(f"lm: secure output off by {err}")
+
+    # step 3's group (A's second request, a cache hit) as a loop of tile
+    # hemms (fused_hlt / baseconv_ntt) on the same ciphertexts
+    from repro_torch.kernels import ops
+    f3 = flushes[2]
+    bat.rng.bit_generator.state = f3["state"]
+    A_tiles, _, _ = bat._encrypt_group(sa, f3["calls"], gl)
+    ops.reset_launch_counts()
+    tl = time.perf_counter()
+    out = sa.engine.matmul_encrypted(A_tiles, lin._w_tiles, batched=False)
+    for r, c in enumerate(f3["calls"]):
+        y = np.concatenate([sa.decrypt_row(out[r][j], LM_SECURE_OUT)
+                            for j in range(gn)])
+        if not np.array_equal(y, f3["res"][(c.request_id, 0)]):
+            raise AssertionError("lm: the loop's row differs from the "
+                                 "batched one")
+    torch.cuda.synchronize()
+    loop = ops.launch_counts()
+    if not (loop["fused_hlt"] and loop["baseconv_ntt"]) or \
+            loop["fused_hlt_indexed"]:
+        raise AssertionError(f"lm: the loop launched {loop}")
+    log(f"[lm] step 3's row array-equal to a loop of {gl * gn} unbatched "
+        f"tile hemms on the same ciphertexts ({(time.perf_counter() - tl):.1f}"
+        f" s; fused_hlt {loop['fused_hlt']}, baseconv_ntt "
+        f"{loop['baseconv_ntt']} launches)")
+    check_verified("lm A", next(p for p in sa.ctx._compiled.values()
+                                if type(p).__name__ == "BlockMMProgram"))
+    log(f"[lm] pool {json.dumps(pool.report())}; cache "
+        f"{json.dumps(cache.report())}")
+    return flushes[1]["launches"]
+
+
+def phase_lm(he_params) -> dict:
+    """Phase 3f: ``lm_plaintext`` then ``lm_secure`` on its weights.
+    Returns the launches of the secure path's step-2 flush."""
+    cfg, params = lm_plaintext()
+    return lm_secure(cfg, params, he_params)
+
+
+def cpu_vs_cuda_lm():
+    """The ``LM_ARCH`` smoke config in float32 served on cuda and on cpu
+    from the same weights: ``forward`` logits within 1e-4; then a
+    ``ContinuousBatcher`` with a toy secure layer (logN 6, tile 4, tenants
+    A, B, A): tokens identical, every secure row and StepStats equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.params import toy_params
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import (ContinuousBatcher, ServeConfig,
+                                   build_secure_serving)
+
+    cfg = dataclasses.replace(get_smoke_config(LM_ARCH), dtype="float32",
+                              secure_layers=(0,))
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(3))
+    params = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 18))
+    logits = {dev: tf.forward(cfg, p, torch.as_tensor(tokens, device=dev))[0]
+              .cpu().numpy() for dev, p in params.items()}
+    np.testing.assert_allclose(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    runs = {}
+    for dev, p in params.items():
+        rng = np.random.default_rng(11)
+        W = rng.standard_normal((cfg.d_model, 4)) * 0.4
+        scfg = ServeConfig(max_batch=2, max_len=32, he_tile=4)
+        serving = build_secure_serving(
+            cfg, scfg, {0: W}, rng, device=dev,
+            he_params=toy_params(logN=6, L=4, k=3, beta=2))
+        b = ContinuousBatcher(cfg, scfg, p, secure=serving)
+        for n, tenant in zip((5, 7, 6), "ABA"):
+            b.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 2,
+                     tenant=tenant)
+        while b.step():
+            pass
+        runs[dev] = (b.results, b.secure_results,
+                     [dataclasses.asdict(s) for s in serving.batcher.steps])
+    (tok_g, rows_g, st_g), (tok_c, rows_c, st_c) = runs["cuda"], runs["cpu"]
+    if tok_g != tok_c or st_g != st_c:
+        raise AssertionError(f"{LM_ARCH} smoke: tokens or StepStats differ "
+                             f"between cuda and cpu")
+    n = 0
+    for rid, outs in rows_c.items():
+        for g, c in zip(rows_g[rid], outs, strict=True):
+            np.testing.assert_array_equal(g[0], c[0])
+            n += 1
+    log(f"[cpu-vs-cuda] {cfg.name} (float32): forward logits within 1e-4 "
+        f"(max|diff| {float(np.abs(logits['cuda'] - logits['cpu']).max()):.3e}"
+        f"); secure serving (toy logN 6, tile 4, tenants A, B, A): tokens "
+        f"identical, {n} rows array-equal, {len(st_c)} steps' StepStats "
+        f"equal")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: whole program on the kernels vs on the plain versions
 # ---------------------------------------------------------------------------
 
@@ -2746,6 +3133,7 @@ def phase_cpu_vs_cuda():
             f"{want[4]:.3e}")
     cpu_vs_cuda_blockmm(params)
     cpu_vs_cuda_chain()
+    cpu_vs_cuda_lm()
 
 
 def cpu_vs_cuda_blockmm(params):
@@ -2838,11 +3226,33 @@ SERVE_DIM = 128
 SERVE_REQUESTS = 3
 SERVE_MAX_LIVE = 2
 
+#: phase 3f: launch/serve.py's traffic on LM_ARCH at full width, and the
+#: prefill + decode vs forward check (S tokens, the reference test's bound)
+LM_ARCH = "internlm2-1.8b"
+LM_REQUESTS, LM_MAX_NEW = 4, 8
+LM_CHECK_S = 16
+LM_TOL = 6e-2
+#: its secure layer: W0 d_model × LM_SECURE_OUT (one output tile), x·W0 of
+#: standard deviation LM_SECURE_STD for an embedding row x; three requests
+#: (prompt lengths, tenants) of LM_SECURE_MAX_NEW tokens; the bound on the
+#: sign-cancelled error, a share of max|x·W0|
+LM_SECURE_OUT = 64
+LM_SECURE_STD = 10.0
+LM_SECURE_PROMPTS = (8, 10, 9)
+LM_SECURE_TENANTS = ("A", "B", "A")
+LM_SECURE_MAX_NEW = 2
+LM_ERR_SHARE = 0.05
+
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
 
 def main() -> int:
+    # phase 3f's Step-2 merged ModDown takes 49 GB at once beside ~26 GB
+    # of keys, arenas and the model: segments that grow in place keep the
+    # caching allocator from stranding free memory between them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -2919,12 +3329,20 @@ def main() -> int:
     log(f"[serve] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    lm = phase_lm(SET_B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
+    log(f"[smoke] whole command {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [
         dict(r.entry(launches[name]), launches_blockmm=blockmm[name],
-             launches_chain=chain[name], launches_serve=serve[name])
+             launches_chain=chain[name], launches_serve=serve[name],
+             launches_lm=lm[name])
         for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Carry the reference package's objects across to the port.
 
-The JAX package's keys, ciphertexts, hoisting products, diagonal sets and
-hemm plans hold arrays that ``np.asarray`` reads; these functions turn
-them into the port's objects on a device, keeping every u32 residue bit
-for bit.  They read attributes only and import nothing of JAX or of
+The JAX package's keys, ciphertexts, hoisting products, diagonal sets,
+hemm plans and model parameters hold arrays that ``np.asarray`` reads;
+these functions turn them into the port's objects on a device, keeping
+every u32 residue bit for bit and every weight value exactly.  They read attributes only and import nothing of JAX or of
 ``repro``.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from repro_torch.core.ckks import Ciphertext, EvalKey, Keys
 from repro_torch.core.hemm import HeMMPlan
 from repro_torch.core.hlt import DiagSet, Hoisted
 from repro_torch.core.params import u32_tensor
+from repro_torch.models.common import ModelConfig
 
 
 def u32(a, device) -> torch.Tensor:
@@ -61,3 +62,30 @@ def hemm_plan(plan, device) -> HeMMPlan:
         ds_eps=[diagset(ds, device) for ds in plan.ds_eps],
         ds_omega=[diagset(ds, device) for ds in plan.ds_omega],
         rot_steps=tuple(int(r) for r in plan.rot_steps))
+
+
+def _tree(x, fn):
+    """``fn`` over every array leaf of nested dicts and lists."""
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree(v, fn) for v in x]
+    return fn(x)
+
+
+def model_params(ref_params: dict, cfg: ModelConfig, device) -> dict:
+    """The reference's ``transformer.init_params`` pytree -> the port's
+    parameter dict, in ``cfg.adtype`` on ``device``.  Every leaf under
+    ``layers`` carries the leading ``nb`` axis of the reference's
+    ``jax.vmap``; block b of the port takes index b of each, so block order
+    is kept.  Values go through float32, which holds bf16 and f32 exactly."""
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=device, dtype=cfg.adtype)
+
+    out = {k: tensor(v) for k, v in ref_params.items() if k != "layers"}
+    stacked = _tree(ref_params["layers"], tensor)
+    nb = len(stacked["attn_layers"][0]["ln1"])
+    out["layers"] = [_tree(stacked, lambda t, b=b: t[b].contiguous())
+                     for b in range(nb)]
+    return out

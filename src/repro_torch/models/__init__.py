@@ -1,5 +1,5 @@
-"""Model substrate of the port: ``ModelConfig`` only (``models/common.py``);
-the layers and the model zoo come with ROADMAP queue 1 item 10."""
+"""Model substrate of the port: ``ModelConfig`` and the layers
+(``models/common.py``), the dense family (``models/transformer.py``)."""
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["ModelConfig"]

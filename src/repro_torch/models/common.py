@@ -1,16 +1,21 @@
-"""Model configuration — counterpart of ``repro/models/common.py``.
+"""Model zoo substrate — counterpart of ``repro/models/common.py``:
+``ModelConfig``, the initializer, norms, RoPE, attention (one masked
+softmax for decode, online softmax over KV blocks otherwise) and the MLP
+variants.  Parameters are dicts of tensors under the reference pytree's
+names; the products stay plain ``torch.matmul`` / ``einsum``, as the
+reference computes them in plain ``jnp`` outside any Pallas kernel.
 
-Only ``ModelConfig`` is ported so far: the secure-serving tier
-(``serve/engine.py`` ``build_secure_serving``) reads ``secure_layers``
-from it.  The layers themselves (norms, RoPE, attention, MLPs,
-embeddings) and the model zoo come with ROADMAP queue 1 item 10, the
-non-HE stack.
+The reference's ``shard(...)`` constraints (no-ops without a mesh) are
+left out: the multi-device layout is ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +107,175 @@ class ModelConfig:
         if self.family != "hybrid" or not self.attn_period:
             return 0
         return self.num_layers // self.attn_period
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
+               in_axis: int = 0) -> torch.Tensor:
+    """Normal entries of standard deviation 1/√fan_in, drawn in float32
+    from ``gen`` on its device, then cast to ``dtype``."""
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * (1.0 / math.sqrt(shape[in_axis]))).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D). Rotary embedding over the last dim; ``positions``
+    (1, S) for a uniform batch or (B, 1) for per-slot decode positions."""
+    half = x.shape[-1] // 2
+    freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=x.device) / half))
+    ang = positions[..., None].float() * freq               # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def decode_attention(q, k, v, kv_len) -> torch.Tensor:
+    """Sq=1 attention: one masked softmax over the full cache.
+
+    q: (B, 1, H, D); k, v: (B, Skv, KV, D); kv_len: the slot last written —
+    an int (uniform batch) or a (B,) tensor (continuous batching: slots
+    admitted at different prompt lengths decode at different positions).
+    Keys at positions > kv_len are masked, so the row just written at
+    kv_len stays visible."""
+    B, _, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (1.0 / math.sqrt(D))
+    kpos = torch.arange(Skv, device=q.device)
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(B)
+    mask = kpos[None, :] > kv_len[:, None]
+    s = s.masked_fill(mask[:, None, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype), v)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D)
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_offset=0,
+                        block: int = 1024) -> torch.Tensor:
+    """Flash-style online-softmax attention over KV tiles of ``block``
+    (Skv zero-padded to a whole number of tiles, the padding masked).
+
+    Never materializes the (Sq, Skv) score matrix.  q: (B, Sq, H, D);
+    k, v: (B, Skv, KV, D); query i sits at position ``q_offset + i``."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(D)      # applied in float32, as the reference
+    nblk = max(1, (Skv + block - 1) // block)
+    pad = nblk * block - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kb = k.reshape(B, nblk, block, KV, D)
+    vb = v.reshape(B, nblk, block, KV, D)
+    qg = q.reshape(B, Sq, KV, g, D)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full((B, KV, g, Sq), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, g, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, g, Sq, D), dtype=q.dtype, device=q.device)
+    for j in range(nblk):
+        kt, vt = kb[:, j], vb[:, j]
+        kpos = j * block + torch.arange(block, device=q.device)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kt).float() * scale
+        mask = (kpos[None, :] > qpos[:, None] if causal
+                else torch.zeros((Sq, block), dtype=torch.bool,
+                                 device=q.device))
+        mask = mask | (kpos[None, :] >= Skv)
+        s = s.masked_fill(mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vt.dtype), vt)
+        acc = acc * corr[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None].to(acc.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    elif cfg.mlp == "squared_relu":
+        h = torch.square(torch.relu(x @ p["wi_up"]))
+    else:                       # jax.nn.gelu's default: the tanh form
+        h = F.gelu(x @ p["wi_up"], approximate="tanh")
+    return h @ p["wo"]
+
+
+def mlp_init(cfg: ModelConfig, gen: torch.Generator,
+             d_ff: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"wi_up": dense_init(gen, (d, f), cfg.adtype),
+         "wo": dense_init(gen, (f, d), cfg.adtype)}
+    if cfg.mlp == "swiglu":
+        p["wi_gate"] = dense_init(gen, (d, f), cfg.adtype)
+    return p
+
+
+def attn_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hdim
+    p = {"wq": dense_init(gen, (d, h * hd), cfg.adtype),
+         "wk": dense_init(gen, (d, kv * hd), cfg.adtype),
+         "wv": dense_init(gen, (d, kv * hd), cfg.adtype),
+         "wo": dense_init(gen, (h * hd, d), cfg.adtype)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            p[name] = torch.zeros((n,), dtype=cfg.adtype, device=gen.device)
+    return p
+
+
+def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
+                 *, kv_cache: Optional[dict] = None, cache_len=None):
+    """Causal self-attention; returns (out, new_kv).  ``kv_cache``:
+    dict(k, v) of (B, S_max, KV, hd), written IN PLACE at ``cache_len`` and
+    returned: an int writes the S new rows from there (prefill, uniform
+    decode), a (B,) tensor writes one row per slot at its own position
+    (ragged decode, S == 1).  The writes must lie inside the cache."""
+    B, S, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.kv_heads, cfg.hdim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q.reshape(B, S, h, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, kv, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, kv, hd)
+    if kv_cache is None:
+        out = blockwise_attention(q, k, v, causal=True, block=cfg.attn_block)
+        return out.reshape(B, S, h * hd) @ p["wo"], None
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    if isinstance(cache_len, torch.Tensor) and cache_len.ndim:
+        if S != 1:
+            raise ValueError("a per-slot cache_len is a decode-only path")
+        rows = torch.arange(B, device=x.device)
+        kc[rows, cache_len] = k[:, 0]
+        vc[rows, cache_len] = v[:, 0]
+    else:
+        cl = int(cache_len)
+        kc[:, cl:cl + S] = k
+        vc[:, cl:cl + S] = v
+    if S == 1:      # decode: one masked softmax over the cache
+        out = decode_attention(q, kc, vc, cache_len)
+    else:
+        out = blockwise_attention(q, kc, vc, causal=True,
+                                  q_offset=cache_len, block=cfg.attn_block)
+    return out.reshape(B, S, h * hd) @ p["wo"], {"k": kc, "v": vc}

@@ -1,19 +1,21 @@
-"""Secure (HE) serving configuration and wiring — the secure-serving part
-of ``repro/serve/engine.py``.
+"""Batched serving engine — counterpart of ``repro/serve/engine.py``:
+prefill and decode steps over a KV cache, continuous-batching slot
+management (host-side scheduler, device-side steps), and the secure (HE)
+serving configuration and wiring.
 
-``ServeConfig`` keeps every field of the reference's; ``build_secure_serving``
-builds the multi-tenant tier (``SessionPool``, ``HEProgramCache``,
-``CrossRequestHEBatcher``) and ``build_secure_linears`` the single-engine
-secure layers.  Both run on CUDA unless ``device="cpu"`` is asked for.
+``ServeConfig`` keeps every field of the reference's;
+``build_secure_serving`` builds the multi-tenant tier (``SessionPool``,
+``HEProgramCache``, ``CrossRequestHEBatcher``) and ``build_secure_linears``
+the single-engine secure layers; ``ContinuousBatcher`` decodes the dense
+models of ``models/transformer.py`` and, given a ``SecureServing`` bundle,
+sends each decode step's secure-layer calls through the tier as one flush.
+Everything runs on CUDA unless ``device="cpu"`` is asked for (the batcher
+runs where its parameters lie).
 
-Not ported yet:
-* ``he_mesh`` (a mesh for the multi-device schedule) and
-  ``make_sharded_serve_steps`` / ``cache_shardings``: ROADMAP queue 1
-  item 9; ``he_mesh`` other than ``None`` is refused;
-* ``ContinuousBatcher`` and ``serve_prefill_step`` / ``serve_decode_step``
-  (the LM decode loop that submits to the secure tier) and the models
-  they step: item 10.  Until then the tier is driven directly, one
-  ``SecureCall`` per request and layer.
+Not ported yet: ``he_mesh`` (a mesh for the multi-device schedule) and
+``make_sharded_serve_steps`` / ``cache_shardings`` (ROADMAP queue 1 item 9;
+``he_mesh`` other than ``None`` is refused), and the audio family's
+frame-embedding steps (item 10).
 """
 from __future__ import annotations
 
@@ -21,11 +23,13 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.params import toy_params
+from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.secure import SecureLinear, SecureMatmulEngine
-from repro_torch.serve.he_batcher import CrossRequestHEBatcher
+from repro_torch.serve.he_batcher import CrossRequestHEBatcher, SecureCall
 from repro_torch.serve.sessions import HEProgramCache, SessionPool
 
 
@@ -116,3 +120,142 @@ def build_secure_serving(cfg: ModelConfig, scfg: ServeConfig, weights: dict,
     batcher = CrossRequestHEBatcher(pool, cache, rng=rng,
                                     batch_requests=scfg.he_batch_requests)
     return SecureServing(pool=pool, cache=cache, batcher=batcher)
+
+
+def serve_prefill_step(cfg: ModelConfig, params, tokens, cache):
+    """One full-sequence prefill of integer ``tokens``.  Float input is the
+    audio family's frame embeddings: not ported (ROADMAP queue 1 item 10)."""
+    if tokens.is_floating_point():
+        return tf.decode_step_embeds(cfg, params, tokens, cache, 0)
+    return tf.prefill(cfg, params, tokens, cache)
+
+
+def serve_decode_step(cfg: ModelConfig, params, token, cache, pos):
+    """One new token against the KV cache (frame embeddings: not ported)."""
+    if token.is_floating_point():
+        return tf.decode_step_embeds(cfg, params, token, cache, pos)
+    return tf.decode_step(cfg, params, token, cache, pos)
+
+
+class ContinuousBatcher:
+    """Host-side continuous batching: fixed device batch of slots; finished
+    sequences are replaced by queued requests between decode steps.
+
+    Each slot decodes at ITS OWN position (slots admitted at different
+    prompt lengths pass a per-slot position vector to ``decode_step``), and
+    sampling follows ``ServeConfig.temperature``: greedy at 0, seeded
+    categorical above (a numpy rng seeded from ``ServeConfig.seed`` on the
+    host, as the reference's, so seeded runs draw the same tokens).
+
+    ``secure`` (a :class:`SecureServing` bundle from
+    ``build_secure_serving``) turns on the secure-layer path: every decode
+    step, each active request submits ONE SecureCall per layer in
+    ``cfg.secure_layers`` — the just-decoded token's embedding row to be
+    projected under that request's TENANT keyset — and a single flush runs
+    them all as one launch per (tenant, layer).  Per-request secure outputs
+    accumulate in ``secure_results``; per-step launch/dedup stats in
+    ``secure.batcher.steps``.  The model, its cache and the sampling
+    inputs live on the parameters' device.
+    """
+
+    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params,
+                 secure: Optional[SecureServing] = None):
+        self.cfg, self.scfg, self.params = cfg, scfg, params
+        self.device = params["embed"].device
+        self.cache = tf.init_cache(cfg, scfg.max_batch, scfg.max_len,
+                                   device=self.device)
+        self.slots: list[Optional[dict]] = [None] * scfg.max_batch
+        self.queue: list[dict] = []
+        self.results: dict[int, list[int]] = {}
+        self.secure = secure
+        self.secure_results: dict[int, list] = {}
+        self._next_id = 0
+        self._rng = np.random.default_rng(scfg.seed)
+
+    def submit(self, prompt_tokens: np.ndarray, max_new: int,
+               tenant: str = "default") -> int:
+        rid = self._next_id
+        self._next_id += 1
+        self.queue.append({"id": rid, "prompt": prompt_tokens,
+                           "max_new": max_new, "done": 0, "tenant": tenant})
+        self.results[rid] = []
+        self.secure_results[rid] = []
+        return rid
+
+    def _sample(self, logits_row: np.ndarray) -> int:
+        """Greedy at temperature 0, seeded categorical above."""
+        t = self.scfg.temperature
+        if t <= 0:
+            return int(np.argmax(logits_row))
+        z = np.asarray(logits_row, np.float64) / t
+        z -= z.max()                      # stable softmax
+        p = np.exp(z)
+        return int(self._rng.choice(len(p), p=p / p.sum()))
+
+    def _admit(self):
+        for i, s in enumerate(self.slots):
+            if s is None and self.queue:
+                req = self.queue.pop(0)
+                # per-slot prefill into a batch-1 cache, copied into slot i
+                cache1 = tf.init_cache(self.cfg, 1, self.scfg.max_len,
+                                       device=self.device)
+                prompt = torch.as_tensor(req["prompt"], device=self.device)
+                logits, cache1 = tf.prefill(self.cfg, self.params,
+                                            prompt[None], cache1)
+                for name, c in self.cache["kv"].items():
+                    c[:, :, i:i + 1].copy_(cache1["kv"][name])
+                tok = self._sample(logits[0, -1].cpu().numpy())
+                self.results[req["id"]].append(tok)
+                req["pos"] = req["prompt"].shape[0]
+                req["last"] = tok
+                self.slots[i] = req
+
+    def _secure_step(self, active) -> None:
+        """Fold every active request's secure-layer calls into one flush
+        (one launch per tenant per layer — serve/he_batcher.py).  Only the
+        active slots' embedding rows leave the device, as float64 (exact
+        from bf16 and f32)."""
+        last = torch.tensor([self.slots[i]["last"] for i in active],
+                            device=self.device)
+        rows = self.params["embed"][last].double().cpu().numpy()
+        for i, x in zip(active, rows):
+            s = self.slots[i]
+            for layer in self.cfg.secure_layers:
+                self.secure.batcher.submit(
+                    SecureCall(s["id"], layer, x, s["tenant"]))
+        res = self.secure.batcher.flush()
+        for i in active:
+            s = self.slots[i]
+            self.secure_results[s["id"]].append(
+                {layer: res[(s["id"], layer)]
+                 for layer in self.cfg.secure_layers})
+
+    def step(self) -> bool:
+        """One decode step over all active slots. Returns False when idle."""
+        self._admit()
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return False
+        if self.secure is not None:
+            self._secure_step(active)
+        toks = np.zeros((self.scfg.max_batch, 1), np.int64)
+        # per-slot positions: each slot decodes against ITS cache length —
+        # inactive slots get 0 (their writes are overwritten by the next
+        # admit's prefill, and their sampled tokens are never read)
+        pos = np.zeros((self.scfg.max_batch,), np.int64)
+        for i in active:
+            toks[i, 0] = self.slots[i]["last"]
+            pos[i] = self.slots[i]["pos"]
+        logits, self.cache = tf.decode_step(
+            self.cfg, self.params, torch.as_tensor(toks, device=self.device),
+            self.cache, torch.as_tensor(pos, device=self.device))
+        logits = logits[:, 0].cpu().numpy()
+        for i in active:
+            s = self.slots[i]
+            s["last"] = self._sample(logits[i])
+            s["pos"] += 1
+            s["done"] += 1
+            self.results[s["id"]].append(s["last"])
+            if s["done"] >= s["max_new"] or s["pos"] >= self.scfg.max_len - 1:
+                self.slots[i] = None
+        return True
