@@ -156,15 +156,30 @@ Phases, each printing its lines before the last:
    ``verify="error"``) behind ``ContinuousBatcher(ServeConfig(max_batch=2,
    max_len=64, he_tile=64))``; three requests (tenants A, B, A) of 2
    tokens: steps 1–2 flush one (1, 32, 1) group of 2048 products a
-   tenant, steps 3–4 A's second request on A's cached program.  Checked:
+   tenant (4096 Step-2 HLTs in the 6 chunks of
+   ``costmodel.step2_chunk``; no allocator setting), steps 3–4 A's
+   second request on A's cached program.  Checked:
    each step's program launches = groups = tenants in flight, cache hits
    and misses, step 2's groups' program stage against
-   ``expected_launches`` for 2048 products, the tokens equal to a
+   ``expected_launches`` for 2048 products and the chunks, the tokens equal to a
    plaintext ``ContinuousBatcher`` run of the same prompts, step 1's rows
    against the same rows on −x ((y(x) − y(−x))/2 within 5 % of
    max|x·W0|; the raw error printed), step 3's row array-equal to a loop
    of 32 unbatched tile hemms on the same ciphertexts; each flush's stage
    times and peak device memory printed;
+3g. families — the other model families at full width, random weights
+   from a seeded generator on the card.  ``granite-moe-3b-a800m`` (moe:
+   32 layers, d 1536, 24 / 8 heads, 40 experts top-8, d_ff 512, vocab
+   49155, bf16) through ``launch/serve.py``'s ``main`` as in 3f, prefill +
+   2 decode steps against ``forward`` (dropless, capacity factor E/k: at
+   the config's 1.25 the drops depend on the group, and that gap is
+   printed), then layer 0 under HE at Set-B as in 3f (W0 1536 × 64) for
+   one tenant: step 1 compiles, step 2 hits, each a (1, 24, 1) group of
+   1536 products whose 3072 Step-2 HLTs run in 5 chunks; the same checks
+   but the loop.  Then ``mamba2-780m`` (ssm), ``zamba2-2.7b`` (hybrid)
+   and ``musicgen-large`` (audio, also on random frame embeddings through
+   ``serve_prefill_step`` / ``serve_decode_step``) through ``main`` and
+   the forward check;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
@@ -177,13 +192,17 @@ Phases, each printing its lines before the last:
    ``internlm2-1.8b`` smoke config in float32 on ``cuda`` and on ``cpu``
    from the same weights: ``forward`` logits within 1e-4, and a
    ``ContinuousBatcher`` with a toy secure layer (logN 6, tile 4, tenants
-   A, B, A): tokens identical, secure rows and StepStats equal.
+   A, B, A): tokens identical, secure rows and StepStats equal; and the
+   ``llama-3.2-vision-90b`` smoke config (175 GB at full width) in
+   float32 with a frontend for its cross-attention: ``forward``, prefill
+   + 2 decode logits and the kv cache within 1e-4.
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on the main
 path, ``launches_blockmm`` / ``launches_chain`` from the counted calls of
 phases 3b and 3d, ``launches_serve`` from phase 3e's step 2, the
-first flush with every program cached, and ``launches_lm`` from phase
-3f's secure step 2, likewise) and, last, ``{"ok": true, "device":
+first flush with every program cached, ``launches_lm`` from phase
+3f's secure step 2, likewise, and ``launches_families`` from phase 3g's
+secure step 2) and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
 imports nothing of JAX or of the ``repro`` package.
 """
@@ -193,7 +212,6 @@ import contextlib
 import dataclasses
 import gc
 import json
-import os
 import pathlib
 import subprocess
 import sys
@@ -1288,24 +1306,38 @@ def round_divisions(eng):
     return undo
 
 
-def expected_launches(batched: bool, l: int, digits=2) -> dict:
+def expected_launches(batched: bool, l: int, digits=2,
+                      chunks: int = 2) -> dict:
     """Kernel launches of one hemm call on each path (every other kernel
     of ``KERNELS`` launches 0 times); ``digits``: the key-switch digits at
     the products' level (2 at Set-B, 3 at Set-C), or a sequence of them,
-    one a hop of a chain of such hemms (the sum over the hops)."""
+    one a hop of a chain of such hemms (the sum over the hops);
+    ``chunks``: the batched HLT runs of a call, Step 1 and Step 2 each in
+    ``costmodel.step2_chunk``'s chunks (``hlt_chunks``; 2 when neither
+    batch reaches the budget)."""
     want = {k: 0 for k in KERNELS}
     for dg in ((digits,) if isinstance(digits, int) else digits):
         per = dg + 4                      # per product: the digits, 2
         add = dict(ntt=per * l, intt=per * l)   # ModDowns, 2 rescales,
         if batched:                       # each an iNTT + an NTT
-            add.update(fused_hlt_indexed=2, hoist_db=2, intt_scale=2,
-                       moddown_finish=2)
+            add.update(fused_hlt_indexed=chunks, hoist_db=2,
+                       intt_scale=chunks, moddown_finish=chunks)
         else:   # 2 + 2·l single HLTs, 4 single hoists (Step 1, Step-2 hoist)
             add.update(fused_hlt=2 + 2 * l, baseconv_ntt=4,
                        intt_scale=4 + 2 + 2 * l, moddown_finish=2 + 2 * l)
         for k, v in add.items():
             want[k] += v
     return want
+
+
+def hlt_chunks(prog) -> int:
+    """The batched fused HLT runs of one call of a hemm or block-MM
+    program: its Step-1 and Step-2 batches, each in the chunks of
+    ``costmodel.step2_chunk``."""
+    from repro_torch.core.costmodel import step2_chunk
+    params = prog.ctx.eng.params
+    return sum(-(-st.batch // step2_chunk(params, st.level, st.batch))
+               for st in (prog.plan.step1, prog.plan.step2))
 
 
 STAGES = ["start", "step1", "step2_hoist", "step2", "mult_rescale"]
@@ -2736,30 +2768,35 @@ def timed_calls(fn, ms: list):
     return wrapper
 
 
-def serve_vs_forward(cfg, params, tokens) -> list:
-    """Prefill of all but the last 2 ``tokens`` and two decode steps
+def serve_vs_forward(cfg, params, seq) -> list:
+    """Prefill of all but the last 2 positions of ``seq`` (token ids, or
+    the audio family's float frame embeddings) and two decode steps
     against one ``forward`` over them all: finite logits of the right
     shape; per step (max|diff|, max of |diff| / (LM_TOL + LM_TOL·|logit|),
     max|logit|), a ratio above 1 being outside the reference test's
     bound."""
     import torch
     from repro_torch.models import transformer as tf
-    B, S = tokens.shape[0], tokens.shape[1] - 2
-    full, _ = tf.forward(cfg, params, tokens)
+    from repro_torch.serve import serve_decode_step, serve_prefill_step
+    B, S = seq.shape[0], seq.shape[1] - 2
+    if seq.is_floating_point():
+        full, _ = tf.forward(cfg, params, None, embeds=seq)
+    else:
+        full, _ = tf.forward(cfg, params, seq)
     cache = tf.init_cache(cfg, B, S + 8)
-    lg, cache = tf.prefill(cfg, params, tokens[:, :S], cache)
+    lg, cache = serve_prefill_step(cfg, params, seq[:, :S], cache)
     pairs = [(lg, full[:, S - 1])]
     for i in range(2):
-        lg, cache = tf.decode_step(cfg, params, tokens[:, S + i:S + i + 1],
-                                   cache, S + i)
+        lg, cache = serve_decode_step(cfg, params, seq[:, S + i:S + i + 1],
+                                      cache, S + i)
         pairs.append((lg, full[:, S + i]))
     out = []
     for got, want in pairs:
         got = got[:, 0]
         if got.shape != (B, cfg.vocab_size) or \
                 not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"lm: logits {tuple(got.shape)} not finite "
-                                 f"or mis-shaped")
+            raise AssertionError(f"{cfg.name}: logits {tuple(got.shape)} not "
+                                 f"finite or mis-shaped")
         d = (got - want).abs()
         out.append((float(d.max()),
                     float((d / (LM_TOL + LM_TOL * want.abs())).max()),
@@ -2767,36 +2804,55 @@ def serve_vs_forward(cfg, params, tokens) -> list:
     return out
 
 
-def lm_forward_check(cfg, params) -> None:
-    """Prefill of ``LM_CHECK_S`` tokens and two decode steps (batch 2)
+def lm_forward_check(cfg, params, tag: str, frames: bool = False) -> None:
+    """Prefill of ``LM_CHECK_S`` positions and two decode steps (batch 2)
     against one ``forward`` (``serve_vs_forward``) on the same weights in
     float32, which must be within the reference test's ``LM_TOL``, and as
-    served in bfloat16, whose gap is printed: 24 layers of bf16 rounding
-    take a few of the 185088 logits just past that bound (PERF.md §6)."""
+    served in the config's dtype, whose gap is printed: at full width
+    bf16 rounding alone takes a few logits just past that bound (PERF.md
+    §6).  A MoE is checked dropless (capacity factor E/k), as the
+    reference's smoke configs are: below that, which (token, expert)
+    pairs a group drops depends on the group's tokens, so the serve path
+    is not the train path; its gap at the config's own capacity factor is
+    printed.  ``frames``: random frame embeddings instead of token ids
+    (the audio family's float input)."""
     import torch
     B, S = 2, LM_CHECK_S
     dev = params["embed"].device
     gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S + 2), generator=gen,
-                           device=dev)
+    if frames:
+        seq = torch.randn((B, S + 2, cfg.d_model), generator=gen, device=dev)
+    else:
+        seq = torch.randint(0, cfg.vocab_size, (B, S + 2), generator=gen,
+                            device=dev)
+    check = cfg
+    if cfg.capacity_factor * cfg.experts_per_token < cfg.num_experts:
+        check = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
     f32 = _to(params, torch.float32)
-    got = {"float32": serve_vs_forward(dataclasses.replace(cfg, dtype="float32"), f32,
-                                       tokens)}
+    got = {"float32": serve_vs_forward(
+        dataclasses.replace(check, dtype="float32"), f32, seq)}
     del f32
-    got[cfg.dtype] = serve_vs_forward(cfg, params, tokens)
+    got[cfg.dtype] = serve_vs_forward(check, params, seq)
+    if check is not cfg:
+        got[f"{cfg.dtype} at capacity factor {cfg.capacity_factor}"] = \
+            serve_vs_forward(cfg, params, seq)
+    what = "frame embeddings" if frames else "tokens"
     for dtype, steps in got.items():
-        log(f"[lm] {dtype}: prefill {S} + 2 decode steps vs forward (B {B}):"
-            f" max|diff| {['%.3e' % e for e, _, _ in steps]}, ratio to "
-            f"{LM_TOL} + {LM_TOL}·|logit| {['%.3f' % r for _, r, _ in steps]}"
-            f" (max|logit| {max(m for _, _, m in steps):.3f})")
+        log(f"[{tag}] {cfg.name} {dtype}: prefill {S} {what} + 2 decode "
+            f"steps vs forward (B {B}): max|diff| "
+            f"{['%.3e' % e for e, _, _ in steps]}, ratio to {LM_TOL} + "
+            f"{LM_TOL}·|logit| {['%.3f' % r for _, r, _ in steps]} "
+            f"(max|logit| {max(m for _, _, m in steps):.3f})")
     if not all(r <= 1 for _, r, _ in got["float32"]):
-        raise AssertionError(f"lm: float32 serve path off forward: "
+        raise AssertionError(f"{cfg.name}: float32 serve path off forward: "
                              f"{got['float32']}")
 
 
-def lm_plaintext():
-    """``launch/serve.py``'s ``main`` at full width on the card, its prefill
-    and decode calls timed; then ``lm_forward_check`` on its weights.
+def lm_plaintext(arch: str, tag: str):
+    """``launch/serve.py``'s ``main`` on ``arch`` at full width on the card
+    (``LM_REQUESTS`` requests of ``LM_MAX_NEW`` tokens), its prefill and
+    decode calls timed; then ``lm_forward_check`` on its weights.
     Returns (cfg, params)."""
     import torch
     from repro_torch.launch import serve as launch_serve
@@ -2805,9 +2861,10 @@ def lm_plaintext():
     orig = tf.prefill, tf.decode_step
     tf.prefill = timed_calls(orig[0], prefill_ms)
     tf.decode_step = timed_calls(orig[1], decode_ms)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        b = launch_serve.main(["--arch", LM_ARCH, "--requests",
+        b = launch_serve.main(["--arch", arch, "--requests",
                                str(LM_REQUESTS), "--max-new",
                                str(LM_MAX_NEW)])
     finally:
@@ -2819,22 +2876,25 @@ def lm_plaintext():
     got = [len(b.results[r]) for r in sorted(b.results)]
     if got != want or not all(0 <= t < cfg.vocab_size
                               for r in b.results.values() for t in r):
-        raise AssertionError(f"lm: tokens per request {got}, expected {want}")
+        raise AssertionError(f"{arch}: tokens per request {got}, expected "
+                             f"{want}")
     if len(prefill_ms) != LM_REQUESTS or len(decode_ms) != LM_MAX_NEW:
-        raise AssertionError(f"lm: {len(prefill_ms)} prefills and "
+        raise AssertionError(f"{arch}: {len(prefill_ms)} prefills and "
                              f"{len(decode_ms)} decode steps")
-    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.num_heads} heads ({cfg.kv_heads} KV), d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} G "
-        f"parameters, "
+    log(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads ({cfg.kv_heads} KV), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{cfg.param_count() / 1e9:.3f} G parameters, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    log(f"[lm] launch/serve.py main: {LM_REQUESTS} requests, "
+    log(f"[{tag}] launch/serve.py main on {arch}: {LM_REQUESTS} requests, "
         f"{len(decode_ms)} decode steps (batch {b.scfg.max_batch}) in "
         f"{total:.1f} s with weight init; prefill ms a request "
         f"{['%.3f' % t for t in prefill_ms]}; ms a decode step "
         f"{['%.3f' % t for t in decode_ms]} (median "
-        f"{sorted(decode_ms)[len(decode_ms) // 2]:.3f})")
-    lm_forward_check(cfg, params)
+        f"{sorted(decode_ms)[len(decode_ms) // 2]:.3f}); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del b
+    lm_forward_check(cfg, params, tag)
     return cfg, params
 
 
@@ -2848,21 +2908,24 @@ def _to(tree, where):
     return tree.to(where)
 
 
-def lm_secure(cfg0, params, he_params) -> dict:
+def lm_secure(cfg0, params, he_params, spec: dict) -> dict:
     """Layer 0 of the full-width model served under HE at Set-B: W0
     (d_model × ``LM_SECURE_OUT``, one output tile) from a numpy seed,
     scaled so that x·W0 has standard deviation ``LM_SECURE_STD`` for an
     embedding row x; ``build_secure_serving`` (tile ``BLOCKMM_TILE``,
-    ``verify="error"``) behind a ``ContinuousBatcher`` of 2 slots.  Three
-    requests (tenants A, B, A) of ``LM_SECURE_MAX_NEW`` tokens: steps 1–2
-    flush one (1, 32, 1) group a tenant (2048 products each), steps 3–4
-    A's second request alone on A's cached program.  Returns the launches
-    of step 2's flush."""
+    ``verify="error"``) behind a ``ContinuousBatcher`` of 2 slots.
+    ``spec`` (``LM_SECURE`` / ``FAM_SECURE``): the requests' prompt
+    lengths and tenants, their new tokens, each flush's (groups, hits,
+    misses), the hit flush whose groups' program launches are held
+    against ``expected_launches`` (Step 2 in ``hlt_chunks`` chunks), and
+    the flush, if any, held against a loop of unbatched tile hemms.
+    Returns the hit flush's launches."""
     import numpy as np
     import torch
     from repro_torch.serve import (ContinuousBatcher, SecureCall,
                                    ServeConfig, build_secure_serving)
 
+    tag = spec["tag"]
     cfg = dataclasses.replace(cfg0, secure_layers=(0,))
     d, t = cfg.d_model, BLOCKMM_TILE
     rng = np.random.default_rng(20266)
@@ -2877,10 +2940,10 @@ def lm_secure(cfg0, params, he_params) -> dict:
         raise AssertionError("the serving pool's engine is not on "
                              "\"pallas\"")
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in LM_SECURE_PROMPTS]
+               for n in spec["prompts"]]
     b = ContinuousBatcher(cfg, scfg, params, secure=serving)
-    for p, tenant in zip(prompts, LM_SECURE_TENANTS):
-        b.submit(p, LM_SECURE_MAX_NEW, tenant=tenant)
+    for p, tenant in zip(prompts, spec["tenants"], strict=True):
+        b.submit(p, spec["max_new"], tenant=tenant)
 
     flushes = []
     real_flush = bat.flush
@@ -2889,7 +2952,7 @@ def lm_secure(cfg0, params, he_params) -> dict:
         calls = list(bat._pending)
         state = bat.rng.bit_generator.state
         res, st, launches, program, peak = traced_flush(
-            serving, f"[lm] step {len(flushes) + 1}", real_flush)
+            serving, f"[{tag}] step {len(flushes) + 1}", real_flush)
         flushes.append(dict(calls=calls, state=state, res=res, st=st,
                             launches=launches, program=program, peak=peak))
         return res
@@ -2906,49 +2969,58 @@ def lm_secure(cfg0, params, he_params) -> dict:
             step_ms.append((time.perf_counter() - ts) * 1e3)
     finally:
         bat.flush = real_flush
-    log(f"[lm] secure serving: {len(step_ms)} steps in "
+    log(f"[{tag}] secure serving: {len(step_ms)} steps in "
         f"{time.perf_counter() - t0:.1f} s; ms a step (flush + decode) "
         f"{['%.1f' % x for x in step_ms]}")
 
     # each step: one program a tenant in flight; hits and misses as the
-    # cache predicts (step 1 compiles A and B, then every group hits)
-    want = [(2, 0, 2), (2, 2, 0), (1, 1, 0), (1, 1, 0)]
+    # cache predicts
     got = []
     for f in flushes:
         st = f["st"]
         tenants = len({c.tenant for c in f["calls"]})
         if not st.program_launches == st.n_groups == tenants or \
                 st.hlt_launches != 2 * st.n_groups:
-            raise AssertionError(f"lm: {st}")
+            raise AssertionError(f"{tag}: {st}")
         got.append((st.n_groups, st.cache_hits, st.cache_misses))
-    if got != want:
-        raise AssertionError(f"lm: (groups, hits, misses) a step {got}, "
-                             f"expected {want}")
-    sa = pool._sessions["A"]
+    if got != spec["want"]:
+        raise AssertionError(f"{tag}: (groups, hits, misses) a step {got}, "
+                             f"expected {spec['want']}")
+    sa = pool._sessions[spec["tenants"][0]]
     lin = sa.linears[0]
     gl, gn = len(lin._w_tiles), len(lin._w_tiles[0])
     level = lin._w_tiles[0][0].level
     digits = len(sa.ctx.eng.tools.digit_bases(level - 2))
-    want_prog = expected_launches(True, t * gl * gn, digits)
-    for g in flushes[1]["program"]:
+    prog = next(p for p in sa.ctx._compiled.values()
+                if type(p).__name__ == "BlockMMProgram")
+    chunks = hlt_chunks(prog)
+    want_prog = expected_launches(True, t * gl * gn, digits, chunks)
+    hit = flushes[spec["hit"]]
+    for g in hit["program"]:
         if g != want_prog:
-            raise AssertionError(f"lm step 2: a group's program launched "
-                                 f"{g}; expected {want_prog}")
-    log(f"[lm] grid (1, {gl}, {gn}) a request, {t * gl * gn} products a "
-        f"group; step 2's groups launched exactly {json.dumps(want_prog)}; "
-        f"keys a tenant {key_bytes(sa.keys) / 1e9:.3f} GB, arena "
+            raise AssertionError(f"{tag} step {spec['hit'] + 1}: a group's "
+                                 f"program launched {g}; expected "
+                                 f"{want_prog}")
+    log(f"[{tag}] grid (1, {gl}, {gn}) a request, {t * gl * gn} products "
+        f"and {prog.plan.step2.batch} Step-2 HLTs a group, Step 1 and 2 in "
+        f"{chunks} chunks; step {spec['hit'] + 1}'s groups launched exactly "
+        f"{json.dumps(want_prog)}; keys a tenant "
+        f"{key_bytes(sa.keys) / 1e9:.3f} GB, arena "
         f"{sa.ctx.arena.nbytes / 1e9:.3f} GB; peak a flush "
-        f"{['%.2f' % (f['peak'] / 1e9) for f in flushes]} GB")
+        f"{['%.2f' % (f['peak'] / 1e9) for f in flushes]} GB "
+        f"(80.92 GB for the internlm2-1.8b group before Step 2 ran in "
+        f"chunks, with expandable segments)")
 
     # the secure layer is a side output: the tokens of a plaintext run
     plain = ContinuousBatcher(cfg0, scfg, params)
     for p in prompts:
-        plain.submit(p, LM_SECURE_MAX_NEW)
+        plain.submit(p, spec["max_new"])
     while plain.step():
         pass
     if plain.results != b.results:
-        raise AssertionError(f"lm: secure run's tokens {b.results} differ "
-                             f"from the plaintext run's {plain.results}")
+        raise AssertionError(f"{tag}: secure run's tokens {b.results} "
+                             f"differ from the plaintext run's "
+                             f"{plain.results}")
 
     # error: every row raw; step 1's rows against the same rows negated
     raw = 0.0
@@ -2956,12 +3028,12 @@ def lm_secure(cfg0, params, he_params) -> dict:
         for c in f["calls"]:
             y = f["res"][(c.request_id, 0)]
             if y.shape != (LM_SECURE_OUT,) or not np.all(np.isfinite(y)):
-                raise AssertionError("lm: output row not finite / "
-                                     "mis-shaped")
+                raise AssertionError(f"{tag}: output row not finite / "
+                                     f"mis-shaped")
             raw = max(raw, float(np.abs(y - c.x @ W0).max()))
     for c in flushes[0]["calls"]:
         bat.submit(SecureCall(c.request_id, 0, -c.x, c.tenant))
-    neg, _, _, _, _ = traced_flush(serving, "[lm] step 1's rows on -x",
+    neg, _, _, _, _ = traced_flush(serving, f"[{tag}] step 1's rows on -x",
                                    bat.flush)
     err = scale = 0.0
     for c in flushes[0]["calls"]:
@@ -2970,49 +3042,70 @@ def lm_secure(cfg0, params, he_params) -> dict:
              - neg[(c.request_id, 0)]) / 2
         err = max(err, float(np.abs(y - want_y).max()))
         scale = max(scale, float(np.abs(want_y).max()))
-    log(f"[lm] max|x·W0| {scale:.3f} (std {LM_SECURE_STD} by design); raw "
-        f"max|y - x·W0| {raw:.3e} over every row; sign-cancelled with -x "
-        f"{err:.3e} ({err / scale:.3%} of max|x·W0|, limit "
+    log(f"[{tag}] max|x·W0| {scale:.3f} (std {LM_SECURE_STD} by design); "
+        f"raw max|y - x·W0| {raw:.3e} over every row; sign-cancelled with "
+        f"-x {err:.3e} ({err / scale:.3%} of max|x·W0|, limit "
         f"{LM_ERR_SHARE:.0%})")
     if not err <= LM_ERR_SHARE * scale:
-        raise AssertionError(f"lm: secure output off by {err}")
+        raise AssertionError(f"{tag}: secure output off by {err}")
 
-    # step 3's group (A's second request, a cache hit) as a loop of tile
-    # hemms (fused_hlt / baseconv_ntt) on the same ciphertexts
-    from repro_torch.kernels import ops
-    f3 = flushes[2]
-    bat.rng.bit_generator.state = f3["state"]
-    A_tiles, _, _ = bat._encrypt_group(sa, f3["calls"], gl)
-    ops.reset_launch_counts()
-    tl = time.perf_counter()
-    out = sa.engine.matmul_encrypted(A_tiles, lin._w_tiles, batched=False)
-    for r, c in enumerate(f3["calls"]):
-        y = np.concatenate([sa.decrypt_row(out[r][j], LM_SECURE_OUT)
-                            for j in range(gn)])
-        if not np.array_equal(y, f3["res"][(c.request_id, 0)]):
-            raise AssertionError("lm: the loop's row differs from the "
-                                 "batched one")
-    torch.cuda.synchronize()
-    loop = ops.launch_counts()
-    if not (loop["fused_hlt"] and loop["baseconv_ntt"]) or \
-            loop["fused_hlt_indexed"]:
-        raise AssertionError(f"lm: the loop launched {loop}")
-    log(f"[lm] step 3's row array-equal to a loop of {gl * gn} unbatched "
-        f"tile hemms on the same ciphertexts ({(time.perf_counter() - tl):.1f}"
-        f" s; fused_hlt {loop['fused_hlt']}, baseconv_ntt "
-        f"{loop['baseconv_ntt']} launches)")
-    check_verified("lm A", next(p for p in sa.ctx._compiled.values()
-                                if type(p).__name__ == "BlockMMProgram"))
-    log(f"[lm] pool {json.dumps(pool.report())}; cache "
+    if spec["loop"] is not None:
+        # a hit flush (one group) as a loop of tile hemms (fused_hlt /
+        # baseconv_ntt) on the same ciphertexts
+        from repro_torch.kernels import ops
+        f3 = flushes[spec["loop"]]
+        bat.rng.bit_generator.state = f3["state"]
+        A_tiles, _, _ = bat._encrypt_group(sa, f3["calls"], gl)
+        ops.reset_launch_counts()
+        tl = time.perf_counter()
+        out = sa.engine.matmul_encrypted(A_tiles, lin._w_tiles,
+                                         batched=False)
+        for r, c in enumerate(f3["calls"]):
+            y = np.concatenate([sa.decrypt_row(out[r][j], LM_SECURE_OUT)
+                                for j in range(gn)])
+            if not np.array_equal(y, f3["res"][(c.request_id, 0)]):
+                raise AssertionError(f"{tag}: the loop's row differs from "
+                                     f"the batched one")
+        torch.cuda.synchronize()
+        loop = ops.launch_counts()
+        if not (loop["fused_hlt"] and loop["baseconv_ntt"]) or \
+                loop["fused_hlt_indexed"]:
+            raise AssertionError(f"{tag}: the loop launched {loop}")
+        log(f"[{tag}] step {spec['loop'] + 1}'s row array-equal to a loop "
+            f"of {gl * gn} unbatched tile hemms on the same ciphertexts "
+            f"({(time.perf_counter() - tl):.1f} s; fused_hlt "
+            f"{loop['fused_hlt']}, baseconv_ntt {loop['baseconv_ntt']} "
+            f"launches)")
+    check_verified(f"{tag} {spec['tenants'][0]}", prog)
+    log(f"[{tag}] pool {json.dumps(pool.report())}; cache "
         f"{json.dumps(cache.report())}")
-    return flushes[1]["launches"]
+    return hit["launches"]
 
 
 def phase_lm(he_params) -> dict:
-    """Phase 3f: ``lm_plaintext`` then ``lm_secure`` on its weights.
-    Returns the launches of the secure path's step-2 flush."""
-    cfg, params = lm_plaintext()
-    return lm_secure(cfg, params, he_params)
+    """Phase 3f: ``lm_plaintext`` on ``LM_ARCH`` then ``lm_secure`` on its
+    weights.  Returns the launches of the secure path's step-2 flush."""
+    cfg, params = lm_plaintext(LM_ARCH, "lm")
+    return lm_secure(cfg, params, he_params, LM_SECURE)
+
+
+def phase_families(he_params) -> dict:
+    """Phase 3g: the non-dense families at full width.  ``FAM_ARCH`` (the
+    MoE) through ``lm_plaintext`` and under HE (``FAM_SECURE``: one
+    tenant, a compile step then a hit); then each of ``FAM_PLAIN``
+    through ``lm_plaintext`` alone, the audio model's check also on frame
+    embeddings.  Returns the launches of the secure path's hit flush."""
+    import torch
+    cfg, params = lm_plaintext(FAM_ARCH, "fam")
+    launches = lm_secure(cfg, params, he_params, FAM_SECURE)
+    for arch in FAM_PLAIN:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, params = lm_plaintext(arch, "fam")
+        if cfg.family == "audio":
+            lm_forward_check(cfg, params, "fam", frames=True)
+    return launches
 
 
 def cpu_vs_cuda_lm():
@@ -3068,6 +3161,49 @@ def cpu_vs_cuda_lm():
         f"identical, {n} rows array-equal, {len(st_c)} steps' StepStats "
         f"equal")
 
+
+
+def cpu_vs_cuda_vlm():
+    """The ``VLM_ARCH`` smoke config (175 GB at full width) in float32 on
+    cuda and on cpu from the same weights, with a frontend (B, T,
+    frontend_dim) for its cross-attention: ``forward`` logits, prefill +
+    two decode steps' logits and the kv cache within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_smoke_config(VLM_ARCH), dtype="float32")
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(4)
+    B, S = 2, 16
+    tokens = rng.integers(0, cfg.vocab_size, (B, S + 2))
+    front = rng.standard_normal((B, cfg.frontend_tokens, cfg.frontend_dim),
+                                dtype=np.float32)
+    outs = {}
+    for dev, p in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        tok = torch.as_tensor(tokens, device=dev)
+        fe = torch.as_tensor(front, device=dev)
+        full, _ = tf.forward(cfg, p, tok, frontend=fe)
+        cache = tf.init_cache(cfg, B, S + 8, device=dev)
+        lg, cache = tf.prefill(cfg, p, tok[:, :S], cache, frontend=fe)
+        steps = [lg]
+        for i in range(2):
+            lg, cache = tf.decode_step(cfg, p, tok[:, S + i:S + i + 1], cache,
+                                       S + i, frontend=fe)
+            steps.append(lg)
+        outs[dev] = [t.cpu().numpy() for t in
+                     [full] + steps + [cache["kv"]["k"], cache["kv"]["v"]]]
+    diff = 0.0
+    for g, c in zip(outs["cuda"], outs["cpu"], strict=True):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+        diff = max(diff, float(np.abs(g - c).max()))
+    np.testing.assert_allclose(outs["cpu"][3][:, 0], outs["cpu"][0][:, S + 1],
+                               rtol=LM_TOL, atol=LM_TOL)
+    log(f"[cpu-vs-cuda] {cfg.name} (float32, frontend {front.shape}): "
+        f"forward, prefill + 2 decode logits and the kv cache within 1e-4 "
+        f"(max|diff| {diff:.3e}); the last decode step within {LM_TOL} of "
+        f"forward")
 
 # ---------------------------------------------------------------------------
 # phase 4: whole program on the kernels vs on the plain versions
@@ -3134,6 +3270,7 @@ def phase_cpu_vs_cuda():
     cpu_vs_cuda_blockmm(params)
     cpu_vs_cuda_chain()
     cpu_vs_cuda_lm()
+    cpu_vs_cuda_vlm()
 
 
 def cpu_vs_cuda_blockmm(params):
@@ -3233,26 +3370,34 @@ LM_REQUESTS, LM_MAX_NEW = 4, 8
 LM_CHECK_S = 16
 LM_TOL = 6e-2
 #: its secure layer: W0 d_model × LM_SECURE_OUT (one output tile), x·W0 of
-#: standard deviation LM_SECURE_STD for an embedding row x; three requests
-#: (prompt lengths, tenants) of LM_SECURE_MAX_NEW tokens; the bound on the
-#: sign-cancelled error, a share of max|x·W0|
+#: standard deviation LM_SECURE_STD for an embedding row x; the bound on
+#: the sign-cancelled error, a share of max|x·W0|
 LM_SECURE_OUT = 64
 LM_SECURE_STD = 10.0
-LM_SECURE_PROMPTS = (8, 10, 9)
-LM_SECURE_TENANTS = ("A", "B", "A")
-LM_SECURE_MAX_NEW = 2
 LM_ERR_SHARE = 0.05
+#: ``lm_secure``'s traffic on LM_ARCH: three requests (tenants A, B, A) of
+#: 2 tokens on 2 slots; steps 1-2 flush one (1, 32, 1) group a tenant,
+#: steps 3-4 A's second request on A's cached program (step 3 also as a
+#: loop of tile hemms)
+LM_SECURE = dict(tag="lm", prompts=(8, 10, 9), tenants=("A", "B", "A"),
+                 max_new=2, want=[(2, 0, 2), (2, 2, 0), (1, 1, 0), (1, 1, 0)],
+                 hit=1, loop=2)
+
+#: phase 3g: the MoE at full width, plaintext and under HE (one tenant:
+#: a compile step, then a hit; a (1, 24, 1) group), then the other
+#: families that fit one card at full width, plaintext
+FAM_ARCH = "granite-moe-3b-a800m"
+FAM_SECURE = dict(tag="fam", prompts=(8,), tenants=("A",), max_new=2,
+                  want=[(1, 0, 1), (1, 1, 0)], hit=1, loop=None)
+FAM_PLAIN = ("mamba2-780m", "zamba2-2.7b", "musicgen-large")
+#: phase 4: the vlm (175 GB at full width) as its smoke config
+VLM_ARCH = "llama-3.2-vision-90b"
 
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
 
 def main() -> int:
-    # phase 3f's Step-2 merged ModDown takes 49 GB at once beside ~26 GB
-    # of keys, arenas and the model: segments that grow in place keep the
-    # caching allocator from stranding free memory between them
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
@@ -3335,6 +3480,12 @@ def main() -> int:
     log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    families = phase_families(SET_B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[fam] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] whole command {time.perf_counter() - T_START:.1f} s")
@@ -3342,7 +3493,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(r.entry(launches[name]), launches_blockmm=blockmm[name],
              launches_chain=chain[name], launches_serve=serve[name],
-             launches_lm=lm[name])
+             launches_lm=lm[name], launches_families=families[name])
         for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ tables.
   deliver (info: the plan's ``hoist_bytes`` overstates the dedup, the
   math is right).
 * AR004 belongs to the sharded schedule (a hint wider than one rank's
-  batch share); the port has no ct axis yet (ROADMAP queue 1 item 9), so
+  batch share); the port has no ct axis yet (no multi-device schedule), so
   the pass cannot raise it.
 """
 from __future__ import annotations

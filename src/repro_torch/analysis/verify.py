@@ -16,8 +16,7 @@ The passes: LS (``level_scale``), VM001 against a block's shared memory
 (``smem``) and AR (``arena``).  The reference's fourth pass, the jaxpr
 linter (JX001–JX004), is not here: JX001 means something only under the
 sharded schedule, and JX002/JX004 become a launch census of the compiled
-program; both wait with the multi-device schedule (ROADMAP queue 1
-item 9).
+program; both wait with the multi-device schedule, not ported yet.
 """
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ from repro_torch.core.hemm import HeMMPlan
 from repro_torch.core.hlt import DiagSet, Hoisted
 from repro_torch.core.params import u32_tensor
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import _block_structure
 
 
 def u32(a, device) -> torch.Tensor:
@@ -75,17 +76,20 @@ def _tree(x, fn):
 
 def model_params(ref_params: dict, cfg: ModelConfig, device) -> dict:
     """The reference's ``transformer.init_params`` pytree -> the port's
-    parameter dict, in ``cfg.adtype`` on ``device``.  Every leaf under
-    ``layers`` carries the leading ``nb`` axis of the reference's
-    ``jax.vmap``; block b of the port takes index b of each, so block order
-    is kept.  Values go through float32, which holds bf16 and f32 exactly."""
+    parameter dict on ``device``, each leaf in its reference dtype (the
+    activation dtype, or float32 for the MoE router and the SSM scalars).
+    Every leaf under ``layers`` carries the leading ``nb`` axis of the
+    reference's ``jax.vmap`` (``cfg``'s block count); block b of the port
+    takes index b of each, so block order is kept.  Values go through
+    float32, which holds bf16 and f32 exactly."""
     def tensor(a):
+        a = np.asarray(a)
         return torch.from_numpy(np.array(a, np.float32)).to(
-            device=device, dtype=cfg.adtype)
+            device=device, dtype=getattr(torch, a.dtype.name))
 
     out = {k: tensor(v) for k, v in ref_params.items() if k != "layers"}
     stacked = _tree(ref_params["layers"], tensor)
-    nb = len(stacked["attn_layers"][0]["ln1"])
+    nb, _ = _block_structure(cfg)
     out["layers"] = [_tree(stacked, lambda t, b=b: t[b].contiguous())
                      for b in range(nb)]
     return out

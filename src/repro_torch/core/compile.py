@@ -62,7 +62,7 @@ from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
 from repro_torch.core.costmodel import (SMEM_PER_BLOCK, hlt_hoist_bytes,
                                         hlt_stage_costs, pick_rotation_chunk,
                                         select_chain_schedules,
-                                        select_schedule)
+                                        select_schedule, step2_chunk)
 from repro_torch.core.hlt import (SCHEDULES, DiagSet, Hoisted, hoist,
                                   hoist_batched)
 from repro_torch.kernels import ops
@@ -485,16 +485,25 @@ class CompiledHLT:
         c0e = torch.stack([h.c0_ext for h in hoisted])
         c1e = torch.stack([h.c1_ext for h in hoisted])
         view = eng.basis(eng.tools.digit_bases(plan.level)[0][2])
-        acc = ops.fused_hlt_indexed(
-            digits, c0e, c1e, *self._operands,
-            torch.tensor(ct_slots, dtype=torch.int32, device=eng.device),
-            self._diag_slots, view.moduli_u32, view.qneg_inv)
-        B = plan.batch
-        down = self._moddown(acc.reshape((2 * B,) + acc.shape[2:]))
+        slots = torch.tensor(ct_slots, dtype=torch.int32, device=eng.device)
         q_ell = eng.ctx.moduli_host[plan.level]
-        return [Ciphertext(down[b], down[B + b], plan.level - 1,
-                           hoisted[ct_slots[b]].scale * ds.scale / q_ell)
-                for b, ds in enumerate(self._diags)]
+        B = plan.batch
+        size = step2_chunk(eng.params, plan.level, B)
+        out = []
+        # consecutive chunks bound the transients (fused output, drop
+        # rows, result); each reads the whole stacked hoist
+        for s in range(0, B, size):
+            e = min(B, s + size)
+            # (2, b, M, N) -> (2·b, M, N); freed once ModDown has read it
+            down = self._moddown(ops.fused_hlt_indexed(
+                digits, c0e, c1e, *self._operands, slots[s:e],
+                self._diag_slots[s:e], view.moduli_u32,
+                view.qneg_inv).flatten(0, 1))
+            out += [Ciphertext(down[i], down[e - s + i], plan.level - 1,
+                               hoisted[ct_slots[s + i]].scale
+                               * self._diags[s + i].scale / q_ell)
+                    for i in range(e - s)]
+        return out
 
     def _run_single(self, item, ds: DiagSet) -> Ciphertext:
         """One HLT on the plan's schedule.  ``pallas``: hoist (unless given a

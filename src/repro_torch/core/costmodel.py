@@ -29,7 +29,7 @@ to chunk = d_max, so d_pad = d_max.
 
 The mesh terms (``sharded_collective_bytes``, the sharded side of
 ``select_schedule``, ``select_chain_schedules``) are ported as arithmetic.
-The port's ``HEContext`` has no mesh yet (ROADMAP queue 1 item 9), so
+The port's ``HEContext`` has no mesh yet (no multi-device schedule), so
 every compile sees n_model = n_ct = 1 and never runs ``"sharded"``.
 """
 from __future__ import annotations
@@ -139,6 +139,38 @@ def hlt_hoist_bytes(params: "HEParams", nbeta: int | None = None,
     nbeta = params.beta if nbeta is None else nbeta
     m = (params.L + 1 + params.k) if n_limbs_ext is None else n_limbs_ext
     return (nbeta + 2) * m * 4.0 * params.N
+
+
+#: Device bytes a batched fused HLT's transients may hold at once
+#: (``step2_chunk``).  One HLT at level ℓ holds 16·N·(ℓ + k + 1) bytes:
+#: at Set-B's Step-2 level 14 that is 12.06 MB, so 8 GiB takes 712 HLTs.
+#: That keeps in one chunk the Set-B hemm 128³ (256 Step-2 HLTs), the
+#: block MM (512), each chain hop, the Set-C hemm 32³ (64 at 45.1 MB) and
+#: a serving group of (3, 2, 2) tiles (640), while an LM group of
+#: (1, 32, 1) tiles (4096) runs in 6 chunks instead of holding 49.4 GB at
+#: once beside ~30 GB of keys, arenas and model on an 80 GB card.
+STEP2_BUDGET_BYTES = 8 << 30
+
+
+def hlt_transient_bytes(params: "HEParams", level: int) -> int:
+    """Device bytes one batched fused HLT at input level ``level`` holds
+    between its rotation kernel and its merged ModDown+Rescale, both
+    output polynomials in u32 words: the fused output over the extended
+    basis (ℓ+1+k rows), the iNTT'd drop rows (k+1) and the result (ℓ)."""
+    m_ext = level + 1 + params.k
+    rows = m_ext + (params.k + 1) + level
+    return 2 * rows * 4 * params.N
+
+
+def step2_chunk(params: "HEParams", level: int, batch: int) -> int:
+    """HLTs a chunk when a batched fused HLT of ``batch`` at ``level``
+    runs in consecutive chunks (``CompiledHLT``): as few chunks as keep
+    each within ``STEP2_BUDGET_BYTES`` of transients, of near-equal size.
+    Step 2 is the batch that reaches the budget; the residues do not
+    depend on the chunking."""
+    cap = max(1, STEP2_BUDGET_BYTES // hlt_transient_bytes(params, level))
+    n_chunks = -(-batch // cap)
+    return -(-batch // n_chunks)
 
 
 def select_schedule(params: "HEParams", nbeta: int | None = None,

@@ -6,7 +6,7 @@ names; the products stay plain ``torch.matmul`` / ``einsum``, as the
 reference computes them in plain ``jnp`` outside any Pallas kernel.
 
 The reference's ``shard(...)`` constraints (no-ops without a mesh) are
-left out: the multi-device layout is ROADMAP queue 1 item 9.
+left out: the multi-device layout is not ported yet.
 """
 from __future__ import annotations
 
@@ -245,22 +245,34 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
-                 *, kv_cache: Optional[dict] = None, cache_len=None):
-    """Causal self-attention; returns (out, new_kv).  ``kv_cache``:
-    dict(k, v) of (B, S_max, KV, hd), written IN PLACE at ``cache_len`` and
-    returned: an int writes the S new rows from there (prefill, uniform
-    decode), a (B,) tensor writes one row per slot at its own position
-    (ragged decode, S == 1).  The writes must lie inside the cache."""
+                 *, kv_cache: Optional[dict] = None, cache_len=None,
+                 kv_override=None, causal: bool = True):
+    """Self-attention, causal unless ``causal=False``; returns (out,
+    new_kv).  ``kv_cache``: dict(k, v) of (B, S_max, KV, hd), written IN
+    PLACE at ``cache_len`` and returned: an int writes the S new rows from
+    there (prefill, uniform decode), a (B,) tensor writes one row per slot
+    at its own position (ragged decode, S == 1).  The writes must lie
+    inside the cache.  ``kv_override``: (k, v) of (B, Skv, KV, hd) to
+    attend to instead (cross-attention: no RoPE, no mask, no cache)."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.kv_heads, cfg.hdim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = x @ p["wq"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(B, S, h, hd), positions, cfg.rope_theta)
+        q = q + p["bq"]
+    q = q.reshape(B, S, h, hd)
+    if kv_override is not None:
+        k, v = kv_override
+        out = blockwise_attention(q, k, v, causal=False, block=cfg.attn_block)
+        return out.reshape(B, S, h * hd) @ p["wo"], None
+    k, v = x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    q = rope(q, positions, cfg.rope_theta)
     k = rope(k.reshape(B, S, kv, hd), positions, cfg.rope_theta)
     v = v.reshape(B, S, kv, hd)
     if kv_cache is None:
-        out = blockwise_attention(q, k, v, causal=True, block=cfg.attn_block)
+        out = blockwise_attention(q, k, v, causal=causal,
+                                  block=cfg.attn_block)
         return out.reshape(B, S, h * hd) @ p["wo"], None
     kc, vc = kv_cache["k"], kv_cache["v"]
     if isinstance(cache_len, torch.Tensor) and cache_len.ndim:

@@ -1,0 +1,174 @@
+"""Mamba2 SSD (state-space duality) block — counterpart of
+``repro/models/ssm.py``: the chunked, matmul-dominant form.
+
+The chunked SSD algorithm (arXiv:2405.21060 §6) splits the selective scan
+into intra-chunk attention-like products plus an inter-chunk state
+recurrence; the reference carries that recurrence, and the few-token
+decode recurrence, with ``lax.scan``, the port with a Python loop.  The
+decode state is O(1) in sequence length: ``h`` (B, H, hd, n) and the
+convolution's last K−1 inputs ``conv`` (B, K−1, C).  ``a_log``,
+``dt_bias`` and ``d_skip`` stay float32 whatever the activation dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, dense_init, rmsnorm
+
+
+def ssm_dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    nheads = d_in // cfg.ssm_head_dim
+    return d_in, nheads, cfg.ssm_state
+
+
+def ssm_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d = cfg.d_model
+    d_in, nheads, nstate = ssm_dims(cfg)
+    conv_dim = d_in + 2 * nstate
+    dev = gen.device
+
+    def full(n, value, dtype):
+        return torch.full((n,), value, dtype=dtype, device=dev)
+
+    return {
+        "in_proj": dense_init(gen, (d, 2 * d_in + 2 * nstate + nheads),
+                              cfg.adtype),
+        "conv_w": dense_init(gen, (cfg.conv_kernel, conv_dim), cfg.adtype),
+        "conv_b": full(conv_dim, 0.0, cfg.adtype),
+        "a_log": full(nheads, 0.0, torch.float32),
+        "dt_bias": full(nheads, 0.0, torch.float32),
+        "d_skip": full(nheads, 1.0, torch.float32),
+        "norm_w": full(d_in, 1.0, cfg.adtype),
+        "out_proj": dense_init(gen, (d_in, d), cfg.adtype),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """(..., T) -> (..., T, T) lower-triangular segment sums (−inf above
+    the diagonal)."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    ss = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return ss.masked_fill(~mask, float("-inf"))
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv1d. x: (B, S, C), w: (K, C), state: (B, K−1, C)
+    (the previous inputs, or zeros when None).  Returns (out, new_state)."""
+    K = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state, x], dim=1)
+    out = sum(xp[:, i: i + x.shape[1], :] * w[i] for i in range(K))
+    return out + b, xp[:, -(K - 1):, :]
+
+
+def ssm_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, state=None):
+    """x: (B, S, d).  ``state``: dict(h, conv) to run the recurrence from
+    (prefill into a cache, decode), or None for the chunked form over a
+    whole sequence.  Returns (y, new_state), new_state None without a
+    state."""
+    B, S, _ = x.shape
+    d_in, nheads, nstate = ssm_dims(cfg)
+    hd = cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xs, Bmat, Cmat, dt = torch.split(
+        zxbcdt, [d_in, d_in, nstate, nstate, nheads], dim=-1)
+    conv_in = torch.cat([xs, Bmat, Cmat], dim=-1)
+    conv_out, conv_state = _causal_conv(
+        conv_in, p["conv_w"], p["conv_b"],
+        None if state is None else state["conv"])
+    conv_out = F.silu(conv_out)
+    xs, Bmat, Cmat = torch.split(conv_out, [d_in, nstate, nstate], dim=-1)
+    xs = xs.reshape(B, S, nheads, hd)
+    dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
+    a = -torch.exp(p["a_log"])                                    # (H,)
+    dA = dt * a                                                   # (B,S,H)
+
+    if state is not None:
+        # the reference's lax.scan over tokens
+        h = state["h"]                                            # (B,H,hd,n)
+        ys = []
+        for t in range(S):
+            xt, bt, ct = xs[:, t], Bmat[:, t], Cmat[:, t]
+            dh = torch.einsum("bhd,bn,bh->bhdn", xt, bt,
+                              dt[:, t].to(xt.dtype))
+            h = h * torch.exp(dA[:, t])[:, :, None, None].to(h.dtype) \
+                + dh.to(h.dtype)
+            ys.append(torch.einsum("bhdn,bn->bhd", h, ct))
+        y = torch.stack(ys, dim=1)                                # (B,S,H,hd)
+        new_state = {"h": h, "conv": conv_state}
+    else:
+        y = _ssd_chunked(cfg, xs, Bmat, Cmat, dA, dt)
+        new_state = None
+
+    y = y + xs * p["d_skip"][None, None, :, None].to(y.dtype)
+    y = y.reshape(B, S, d_in)
+    y = rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    return y @ p["out_proj"], new_state
+
+
+def _ssd_chunked(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt):
+    """Chunked SSD: intra-chunk products + the inter-chunk recurrence.
+
+    xs: (B, S, H, hd), Bmat / Cmat: (B, S, n), dA / dt: (B, S, H) float32.
+    S is right-padded to a multiple of the chunk; padded steps come after
+    every real one, so they cannot reach y[:, :S]."""
+    B, S, H, hd = xs.shape
+    n = Bmat.shape[-1]
+    Q = min(cfg.ssm_chunk, S)
+    S_out = S
+    pad = (-S) % Q
+    if pad:
+        def padf(t):
+            return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+        xs, Bmat, Cmat, dA, dt = map(padf, (xs, Bmat, Cmat, dA, dt))
+        S = S + pad
+    nc = S // Q
+
+    def r(t):
+        return t.reshape(B, nc, Q, *t.shape[2:])
+
+    xs_c, B_c, C_c = r(xs), r(Bmat), r(Cmat)
+    dA_c, dt_c = r(dA), r(dt)                                    # (B,nc,Q,H)
+    dA_h = dA_c.permute(0, 1, 3, 2)                              # (B,nc,H,Q)
+    # intra-chunk: Y = (C B^T ⊙ L) (dt·X)
+    L = torch.exp(_segsum(dA_h))                                 # (B,nc,H,Q,Q)
+    CB = torch.einsum("bcqn,bcsn->bcqs", C_c, B_c)               # (B,nc,Q,Q)
+    M = CB[:, :, None] * L                                       # (B,nc,H,Q,Q)
+    dtx = xs_c * dt_c[..., None].to(xs_c.dtype)                  # (B,nc,Q,H,hd)
+    y_intra = torch.einsum("bchqs,bcshd->bcqhd", M.to(xs_c.dtype), dtx)
+    # chunk states: h_c = Σ_s exp(A_end − A_s) dt_s B_s x_s
+    Aend = torch.cumsum(dA_h, dim=-1)
+    decay_to_end = torch.exp(Aend[..., -1:] - Aend)              # (B,nc,H,Q)
+    st = torch.einsum("bchq,bcqhd,bcqn->bchdn",
+                      decay_to_end.to(xs_c.dtype), dtx, B_c)     # (B,nc,H,hd,n)
+    chunk_decay = torch.exp(Aend[..., -1])                       # (B,nc,H)
+
+    # the reference's lax.scan over chunks: h_prev of each chunk
+    h = torch.zeros((B, H, hd, n), dtype=xs.dtype, device=xs.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None].to(h.dtype) + st[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                        # (B,nc,H,hd,n)
+    # inter-chunk: y += C_t · (decay_from_start · h_prev)
+    decay_in = torch.exp(Aend)                                   # (B,nc,H,Q)
+    y_inter = torch.einsum("bcqn,bchdn,bchq->bcqhd", C_c, h_prevs,
+                           decay_in.to(xs_c.dtype))
+    return (y_intra + y_inter).reshape(B, S, H, hd)[:, :S_out]
+
+
+def ssm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    d_in, nheads, nstate = ssm_dims(cfg)
+    conv_dim = d_in + 2 * nstate
+    return {
+        "h": torch.zeros((batch, nheads, cfg.ssm_head_dim, nstate),
+                         dtype=dtype, device=device),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }

@@ -14,8 +14,7 @@ counterpart of ``repro/secure/secure_linear.py``.
 The engine owns an ``HEContext`` (``core/compile.py``), on CUDA unless
 ``device="cpu"`` is asked for.  The cost model picks the schedule; the
 ``schedule=`` knob is a deprecated override, as in the reference.  Not
-ported yet, and refused: ``mesh=`` (the multi-device schedule, ROADMAP
-queue 1 item 9).
+ported yet, and refused: ``mesh=`` (the multi-device schedule).
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ class SecureMatmulEngine:
         if self.mesh is not None:
             raise NotImplementedError(
                 "SecureMatmulEngine(mesh=...): the multi-device schedule is "
-                "not ported yet (ROADMAP queue 1 item 9)")
+                "not ported yet")
         if self.ctx is None:
             self.ctx = HEContext(CkksEngine(self.params, device=self.device))
         elif self.ctx.eng.params != self.params:

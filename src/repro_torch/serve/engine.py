@@ -6,16 +6,14 @@ serving configuration and wiring.
 ``ServeConfig`` keeps every field of the reference's;
 ``build_secure_serving`` builds the multi-tenant tier (``SessionPool``,
 ``HEProgramCache``, ``CrossRequestHEBatcher``) and ``build_secure_linears``
-the single-engine secure layers; ``ContinuousBatcher`` decodes the dense
-models of ``models/transformer.py`` and, given a ``SecureServing`` bundle,
+the single-engine secure layers; ``ContinuousBatcher`` decodes every
+family of ``models/transformer.py`` and, given a ``SecureServing`` bundle,
 sends each decode step's secure-layer calls through the tier as one flush.
 Everything runs on CUDA unless ``device="cpu"`` is asked for (the batcher
 runs where its parameters lie).
 
-Not ported yet: ``he_mesh`` (a mesh for the multi-device schedule) and
-``make_sharded_serve_steps`` / ``cache_shardings`` (ROADMAP queue 1 item 9;
-``he_mesh`` other than ``None`` is refused), and the audio family's
-frame-embedding steps (item 10).
+Not ported yet: the multi-device schedule — ``he_mesh`` (refused unless
+``None``), ``make_sharded_serve_steps`` and ``cache_shardings``.
 """
 from __future__ import annotations
 
@@ -56,7 +54,7 @@ def _check_mesh(scfg: ServeConfig) -> None:
     if scfg.he_mesh is not None:
         raise NotImplementedError(
             "ServeConfig(he_mesh=...): the multi-device schedule is not "
-            "ported yet (ROADMAP queue 1 item 9)")
+            "ported yet")
 
 
 def _default_params():
@@ -123,15 +121,15 @@ def build_secure_serving(cfg: ModelConfig, scfg: ServeConfig, weights: dict,
 
 
 def serve_prefill_step(cfg: ModelConfig, params, tokens, cache):
-    """One full-sequence prefill of integer ``tokens``.  Float input is the
-    audio family's frame embeddings: not ported (ROADMAP queue 1 item 10)."""
+    """One full-sequence prefill.  For [audio] archs the input is
+    precomputed frame embeddings (float), not tokens."""
     if tokens.is_floating_point():
-        return tf.decode_step_embeds(cfg, params, tokens, cache, 0)
+        return tf.prefill(cfg, params, None, cache, embeds=tokens)
     return tf.prefill(cfg, params, tokens, cache)
 
 
 def serve_decode_step(cfg: ModelConfig, params, token, cache, pos):
-    """One new token against the KV cache (frame embeddings: not ported)."""
+    """One new token (or frame embedding) against the cache."""
     if token.is_floating_point():
         return tf.decode_step_embeds(cfg, params, token, cache, pos)
     return tf.decode_step(cfg, params, token, cache, pos)
@@ -202,8 +200,9 @@ class ContinuousBatcher:
                 prompt = torch.as_tensor(req["prompt"], device=self.device)
                 logits, cache1 = tf.prefill(self.cfg, self.params,
                                             prompt[None], cache1)
-                for name, c in self.cache["kv"].items():
-                    c[:, :, i:i + 1].copy_(cache1["kv"][name])
+                for g, tree in self.cache.items():   # kv and ssm leaves
+                    for name, c in tree.items():
+                        c[:, :, i:i + 1].copy_(cache1[g][name])
                 tok = self._sample(logits[0, -1].cpu().numpy())
                 self.results[req["id"]].append(tok)
                 req["pos"] = req["prompt"].shape[0]

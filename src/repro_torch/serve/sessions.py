@@ -28,8 +28,7 @@ contexts, and a compiled-program cache — counterpart of
   shared-prompt pattern of the same shape.
 
 The pool runs on CUDA unless ``device="cpu"`` is asked for.  Not ported
-yet, and refused: ``mesh=`` (the multi-device schedule, ROADMAP queue 1
-item 9).  The per-step batching lives in ``serve/he_batcher.py``.
+yet, and refused: ``mesh=`` (the multi-device schedule).  The per-step batching lives in ``serve/he_batcher.py``.
 """
 from __future__ import annotations
 
@@ -117,7 +116,7 @@ class SessionPool:
         if mesh is not None:
             raise NotImplementedError(
                 "SessionPool(mesh=...): the multi-device schedule is not "
-                "ported yet (ROADMAP queue 1 item 9)")
+                "ported yet")
         self.params = params
         self.tile = tile
         self.max_live = max(1, max_live)

@@ -327,26 +327,13 @@ def test_configs_equal_reference(arch):
 # -- what is not ported ------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "granite-moe-3b-a800m",
-                                  "zamba2-2.7b", "llama-3.2-vision-90b",
-                                  "musicgen-large"])
-def test_non_dense_family_raises(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tf.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tf.init_cache(cfg, 1, 8, device=CPU)
-
-
 def test_audio_train_and_mesh_raise():
+    """Training and the tensor-parallel mesh are not ported (the audio
+    family's frame input is: ``tests/test_torch_families.py``)."""
     cfg = get_smoke_config("internlm2-1.8b")
-    frames = torch.zeros((1, 1, cfg.d_model))
-    for call in (lambda: serve_prefill_step(cfg, {}, frames, {}),
-                 lambda: serve_decode_step(cfg, {}, frames, {}, 0),
-                 lambda: tf.train_loss(cfg, {}, {})):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="training"):
+        tf.train_loss(cfg, {}, {})
+    with pytest.raises(NotImplementedError, match="multi-device schedule"):
         launch_serve.main(["--arch", "internlm2-1.8b", "--smoke", "--tp", "2",
                            "--device", CPU])
 
