@@ -180,6 +180,21 @@ Phases, each printing its lines before the last:
    and ``musicgen-large`` (audio, also on random frame embeddings through
    ``serve_prefill_step`` / ``serve_decode_step``) through ``main`` and
    the forward check;
+3h. train — ``repro_torch.launch.train``'s ``main`` on ``internlm2-1.8b``
+   at full width (bf16, remat on, seeded random weights on the card): 6
+   steps of global batch 4 × 512 tokens with the launcher's optimizer
+   (AdamW, lr 1e-3 after 20 warm-up steps), every kernel counter zeroed
+   before and read after (the training path launches none: the
+   reference's LM is plain ``jnp``); every step's loss and grad norm
+   finite, its lr equal to ``lr_at``, the bf16 parameters equal to their
+   float32 master cast to bf16; the loss curve, ms a step (CUDA events
+   around each train step, the median after the first), tokens/s and
+   ``max_memory_allocated`` printed.  Then 2 steps with 2 microbatches,
+   whose first loss must be within 1e-3 of one batch's; no checkpoint
+   at full width (≈ 30 GB).  Then the smoke config on the card under
+   deterministic algorithms: 4 steps with a checkpoint every 2, a resume
+   to step 6 (its line printed), the state and metrics equal to 6
+   uninterrupted steps;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
@@ -195,14 +210,19 @@ Phases, each printing its lines before the last:
    A, B, A): tokens identical, secure rows and StepStats equal; and the
    ``llama-3.2-vision-90b`` smoke config (175 GB at full width) in
    float32 with a frontend for its cross-attention: ``forward``, prefill
-   + 2 decode logits and the kv cache within 1e-4.
+   + 2 decode logits and the kv cache within 1e-4; and two train steps
+   of the ``internlm2-1.8b``, ``granite-moe-3b-a800m`` (dropless) and
+   ``mamba2-780m`` smoke configs in float32 from the same state: metrics
+   and the new state within 1e-4 (the entries of a rounding-level
+   gradient left out of the parameters' check, and counted).
 
 Then one line ``{"kernels": [...]}`` (each kernel's launches on the main
 path, ``launches_blockmm`` / ``launches_chain`` from the counted calls of
 phases 3b and 3d, ``launches_serve`` from phase 3e's step 2, the
 first flush with every program cached, ``launches_lm`` from phase
-3f's secure step 2, likewise, and ``launches_families`` from phase 3g's
-secure step 2) and, last, ``{"ok": true, "device":
+3f's secure step 2, likewise, ``launches_families`` from phase 3g's
+secure step 2, and ``launches_train`` from phase 3h's full-width run) and,
+last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
 imports nothing of JAX or of the ``repro`` package.
 """
@@ -211,10 +231,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
+import math
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -3206,6 +3230,210 @@ def cpu_vs_cuda_vlm():
         f"forward")
 
 # ---------------------------------------------------------------------------
+# phase 3h: the training stack, internlm2-1.8b trained at full width
+# ---------------------------------------------------------------------------
+
+
+def cuda_timed(fn, events: list):
+    """``fn`` wrapped to record a pair of CUDA events around each call,
+    appended to ``events`` (read after a synchronize: no sync here)."""
+    import torch
+
+    def wrapper(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+    return wrapper
+
+
+def run_launcher(argv: list, events=None):
+    """``repro_torch.launch.train``'s ``main(argv)`` with its printed lines
+    logged, each train step timed by ``cuda_timed`` into ``events`` when
+    given.  Returns (the ``TrainRun``, the printed text)."""
+    from repro_torch.launch import train as launch_train
+    orig = launch_train.train_step
+    if events is not None:
+        launch_train.train_step = cuda_timed(orig, events)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            run = launch_train.main(argv)
+    finally:
+        launch_train.train_step = orig
+    for line in buf.getvalue().splitlines():
+        log(f"[train]   {line}")
+    return run, buf.getvalue()
+
+
+def check_train_run(run, steps: int, what: str) -> list:
+    """A launcher run to ``steps``: every step's loss and grad norm finite,
+    its lr equal to ``lr_at`` (float32 against float64, within 1e-6), the
+    parameters equal to their float32 master cast to their dtype, the
+    state's step ``steps``.  Returns the losses."""
+    import torch
+    from repro_torch.train.optimizer import lr_at
+    from repro_torch.tree import leaves
+    if len(run.metrics) != steps - run.start:
+        raise AssertionError(f"{what}: {len(run.metrics)} steps run")
+    losses = []
+    for i, m in enumerate(run.metrics, start=run.start + 1):
+        loss, gnorm, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
+        want = lr_at(run.tcfg.opt, i)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)) or \
+                abs(lr - want) > 1e-6 * want:
+            raise AssertionError(f"{what}: step {i} loss {loss}, grad norm "
+                                 f"{gnorm}, lr {lr} (lr_at {want})")
+        losses.append(loss)
+    for p, mst in zip(leaves(run.state["params"]),
+                      leaves(run.state["opt"]["master"]), strict=True):
+        if not torch.equal(p, mst.to(p.dtype)):
+            raise AssertionError(f"{what}: a parameter is not its master "
+                                 f"cast to {p.dtype}")
+    if int(run.state["opt"]["step"]) != steps:
+        raise AssertionError(f"{what}: state step "
+                             f"{int(run.state['opt']['step'])}")
+    return losses
+
+
+def train_full_width() -> dict:
+    """``launch/train.py``'s ``main`` on ``TRAIN_ARCH`` at full width:
+    ``TRAIN_STEPS`` steps of global batch ``TRAIN_BATCH`` × ``TRAIN_SEQ``
+    tokens (remat on, as the config says), each step and its optimizer
+    update timed with CUDA events, every kernel counter zeroed before and
+    read after; then ``TRAIN_MB_STEPS`` steps with 2
+    microbatches, whose first loss (before any update, same weights) must
+    be within ``TRAIN_MB_RTOL`` of the first run's.  No checkpoint is
+    written (≈ 30 GB at full width).  Returns the kernel launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts_mod
+    args = ["--arch", TRAIN_ARCH, "--global-batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-every", str(TRAIN_STEPS + 1)]
+    with tempfile.TemporaryDirectory() as tmp:
+        events, opt_events = [], []
+        orig = ts_mod.apply_updates
+        ts_mod.apply_updates = cuda_timed(orig, opt_events)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            run, _ = run_launcher(args + ["--steps", str(TRAIN_STEPS),
+                                          "--ckpt-dir", tmp], events)
+        finally:
+            ts_mod.apply_updates = orig
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = check_train_run(run, TRAIN_STEPS, TRAIN_ARCH)
+        gnorms = [float(m["grad_norm"]) for m in run.metrics]
+        cfg = run.cfg
+        ms = [a.elapsed_time(b) for a, b in events]
+        steady = sorted(ms[1:])
+        med = steady[len(steady) // 2]
+        opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+        log(f"[train] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{cfg.num_heads} heads ({cfg.kv_heads} KV), d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}: "
+            f"{cfg.param_count() / 1e9:.3f} G parameters; state resident "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        log(f"[train] launch/train.py main, {TRAIN_STEPS} steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {total:.1f} s with "
+            f"weight init: loss {['%.4f' % x for x in losses]}; grad norm "
+            f"{['%.4f' % x for x in gnorms]}; ms a step (CUDA events) "
+            f"{['%.3f' % x for x in ms]}, median after the warm-up step "
+            f"{med:.3f} ({TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s), "
+            f"of which apply_updates {['%.3f' % x for x in opt_ms]}; "
+            f"peak {peak / 1e9:.2f} GB (max_memory_allocated); kernel "
+            f"launches {sum(launches.values())}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        run2, _ = run_launcher(args + ["--steps", str(TRAIN_MB_STEPS),
+                                       "--microbatches", "2",
+                                       "--ckpt-dir", tmp])
+        mb = check_train_run(run2, TRAIN_MB_STEPS, f"{TRAIN_ARCH} x2")
+        if os.listdir(tmp):
+            raise AssertionError(f"checkpoints written: {os.listdir(tmp)}")
+    del run2
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = abs(mb[0] - losses[0]) / abs(losses[0])
+    log(f"[train] 2 microbatches, {TRAIN_MB_STEPS} steps: loss "
+        f"{['%.4f' % x for x in mb]}; first loss {mb[0]:.6f} vs {losses[0]:.6f}"
+        f" in one batch (relative {rel:.3e}, bound {TRAIN_MB_RTOL})")
+    if not rel <= TRAIN_MB_RTOL:
+        raise AssertionError(f"microbatches: first loss {mb[0]} vs "
+                             f"{losses[0]}")
+    return launches
+
+
+def train_resume() -> None:
+    """The launcher at ``TRAIN_ARCH``'s smoke config on cuda, under
+    ``torch.use_deterministic_algorithms`` (the embedding's backward
+    accumulates atomically otherwise; cuBLAS asks for
+    ``CUBLAS_WORKSPACE_CONFIG``, set for this phase only): 4 steps with a
+    checkpoint every 2, then a resume to step 6, against 6 uninterrupted
+    steps: the resume line printed, the state and every step's metrics
+    equal."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.tree import leaves_with_paths
+    smoke = ["--arch", TRAIN_ARCH, "--smoke", "--global-batch", "4",
+             "--seq", "64"]
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+            first, _ = run_launcher(smoke + ["--steps", "4", "--ckpt-every",
+                                             "2", "--ckpt-dir", a])
+            saved = sorted(ckpt.all_steps(a))
+            resumed, out = run_launcher(smoke + ["--steps", "6",
+                                                 "--ckpt-every", "2",
+                                                 "--ckpt-dir", a])
+            whole, _ = run_launcher(smoke + ["--steps", "6", "--ckpt-every",
+                                             "100", "--ckpt-dir", b])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    if saved != [2, 4] or resumed.start != 4 or \
+            "[train] elastic resume from step 4" not in out:
+        raise AssertionError(f"resume: checkpoints {saved}, start "
+                             f"{resumed.start}")
+    check_train_run(resumed, 6, "resumed")
+    got, want = leaves_with_paths(resumed.state), leaves_with_paths(whole.state)
+    if [p for p, _ in got] != [p for p, _ in want] or not all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(got, want)):
+        raise AssertionError("resumed state differs from the uninterrupted "
+                             "run's")
+    for i, (x, y) in enumerate(zip(first.metrics + resumed.metrics,
+                                   whole.metrics, strict=True)):
+        if any(not torch.equal(x[k], y[k]) for k in y):
+            raise AssertionError(f"step {i}: metrics differ after resume")
+    log(f"[train] {TRAIN_ARCH} smoke on cuda (deterministic algorithms): 4 "
+        f"steps, checkpoints {saved}, resumed from step 4 to 6: state "
+        f"({len(got)} leaves) and 6 steps' metrics equal to an uninterrupted "
+        f"run")
+
+
+def phase_train() -> dict:
+    """Phase 3h: ``train_full_width`` then ``train_resume``.  Returns the
+    kernel launches of the full-width run."""
+    launches = train_full_width()
+    train_resume()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: whole program on the kernels vs on the plain versions
 # ---------------------------------------------------------------------------
 
@@ -3271,6 +3499,74 @@ def phase_cpu_vs_cuda():
     cpu_vs_cuda_chain()
     cpu_vs_cuda_lm()
     cpu_vs_cuda_vlm()
+    cpu_vs_cuda_train()
+
+
+def cpu_vs_cuda_train():
+    """One ``train_step`` then a second, in float32, of each of
+    ``TRAIN_CPU_ARCHS``' smoke configs (the MoE's is dropless) on cuda and
+    on cpu from the same state, with the launcher's optimizer: metrics
+    within 1e-4, and the new state — step, m, v everywhere; master
+    weights and parameters where every step's cpu gradient is at least
+    1e-6 · max|g| of its leaf (Adam's first steps move the others by ±lr
+    on the sign of a rounding-level gradient; the count is printed) —
+    within rtol = atol = 1e-4."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, device_batch, synth_batch
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import leaves
+
+    def close(x, y):
+        return torch.allclose(x.cpu(), y, rtol=1e-4, atol=1e-4)
+
+    for arch in TRAIN_CPU_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        if cfg.family == "moe" and \
+                cfg.capacity_factor * cfg.experts_per_token < cfg.num_experts:
+            raise AssertionError(f"{arch}: the smoke config drops tokens")
+        tcfg = ts.TrainConfig(opt=OptConfig(**TRAIN_OPT))
+        cpu = ts.init_train_state(cfg, tcfg, torch.Generator().manual_seed(6))
+        states = {"cuda": _to(cpu, "cuda"), "cpu": cpu}
+        keep = None
+        for step in range(2):
+            host = synth_batch(cfg, DataConfig(global_batch=4, seq_len=32),
+                               step)
+            _, grads = ts.value_and_grad(cfg, states["cpu"]["params"],
+                                         device_batch(cfg, host, "cpu"))
+            big = [g.abs() >= 1e-6 * g.abs().max() for g in grads]
+            keep = big if keep is None else [k & b for k, b in zip(keep, big)]
+            metrics = {}
+            for dev in states:
+                states[dev], metrics[dev] = ts.train_step(
+                    cfg, tcfg, states[dev], device_batch(cfg, host, dev))
+            for k, want in metrics["cpu"].items():
+                if not close(metrics["cuda"][k], want):
+                    raise AssertionError(f"{arch} step {step}: {k} "
+                                         f"{float(metrics['cuda'][k])} vs "
+                                         f"{float(want)}")
+        got, want = states["cuda"], states["cpu"]
+        if not int(got["opt"]["step"]) == int(want["opt"]["step"]) == 2:
+            raise AssertionError(f"{arch}: step")
+        diff, left_out = 0.0, 0
+        for name in ("m", "v"):
+            for x, y in zip(leaves(got["opt"][name]), leaves(want["opt"][name]),
+                            strict=True):
+                if not close(x, y):
+                    raise AssertionError(f"{arch}: {name} off cpu")
+        for x_tree, y_tree in ((got["params"], want["params"]),
+                               (got["opt"]["master"], want["opt"]["master"])):
+            for x, y, k in zip(leaves(x_tree), leaves(y_tree), keep,
+                               strict=True):
+                left_out += int((~k).sum())
+                if not close(x[k.cuda()], y[k]):
+                    raise AssertionError(f"{arch}: parameters off cpu")
+                diff = max(diff, float((x.cpu()[k] - y[k]).abs().max()))
+        log(f"[cpu-vs-cuda] {cfg.name} (float32): 2 train steps, metrics "
+            f"within 1e-4, step / m / v and the parameters and master "
+            f"within 1e-4 (max|diff| {diff:.3e}; {left_out} entries of "
+            f"|g| < 1e-6·max|g| left out)")
 
 
 def cpu_vs_cuda_blockmm(params):
@@ -3393,6 +3689,18 @@ FAM_PLAIN = ("mamba2-780m", "zamba2-2.7b", "musicgen-large")
 #: phase 4: the vlm (175 GB at full width) as its smoke config
 VLM_ARCH = "llama-3.2-vision-90b"
 
+#: phase 3h: launch/train.py on TRAIN_ARCH at full width, TRAIN_STEPS steps
+#: of TRAIN_BATCH × TRAIN_SEQ tokens, then TRAIN_MB_STEPS with 2
+#: microbatches; their first losses agree within TRAIN_MB_RTOL (bf16
+#: logits from products blocked for another batch size)
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 512
+TRAIN_MB_STEPS = 2
+TRAIN_MB_RTOL = 1e-3
+#: phase 4: train steps on cuda vs cpu, with the launcher's optimizer
+TRAIN_CPU_ARCHS = ("internlm2-1.8b", "granite-moe-3b-a800m", "mamba2-780m")
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
@@ -3486,6 +3794,12 @@ def main() -> int:
     log(f"[fam] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    train = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] whole command {time.perf_counter() - T_START:.1f} s")
@@ -3493,7 +3807,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(r.entry(launches[name]), launches_blockmm=blockmm[name],
              launches_chain=chain[name], launches_serve=serve[name],
-             launches_lm=lm[name], launches_families=families[name])
+             launches_lm=lm[name], launches_families=families[name],
+             launches_train=train[name])
         for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

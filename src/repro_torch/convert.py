@@ -1,9 +1,10 @@
 """Carry the reference package's objects across to the port.
 
 The JAX package's keys, ciphertexts, hoisting products, diagonal sets,
-hemm plans and model parameters hold arrays that ``np.asarray`` reads;
-these functions turn them into the port's objects on a device, keeping
-every u32 residue bit for bit and every weight value exactly.  They read attributes only and import nothing of JAX or of
+hemm plans, model parameters and train states hold arrays that
+``np.asarray`` reads; these functions turn them into the port's objects
+on a device, keeping every u32 residue bit for bit and every weight value
+exactly.  They read attributes only and import nothing of JAX or of
 ``repro``.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ from repro_torch.core.hlt import DiagSet, Hoisted
 from repro_torch.core.params import u32_tensor
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import _block_structure
+from repro_torch.tree import tree_map
 
 
 def u32(a, device) -> torch.Tensor:
@@ -65,15 +67,6 @@ def hemm_plan(plan, device) -> HeMMPlan:
         rot_steps=tuple(int(r) for r in plan.rot_steps))
 
 
-def _tree(x, fn):
-    """``fn`` over every array leaf of nested dicts and lists."""
-    if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return [_tree(v, fn) for v in x]
-    return fn(x)
-
-
 def model_params(ref_params: dict, cfg: ModelConfig, device) -> dict:
     """The reference's ``transformer.init_params`` pytree -> the port's
     parameter dict on ``device``, each leaf in its reference dtype (the
@@ -88,8 +81,23 @@ def model_params(ref_params: dict, cfg: ModelConfig, device) -> dict:
             device=device, dtype=getattr(torch, a.dtype.name))
 
     out = {k: tensor(v) for k, v in ref_params.items() if k != "layers"}
-    stacked = _tree(ref_params["layers"], tensor)
+    stacked = tree_map(tensor, ref_params["layers"])
     nb, _ = _block_structure(cfg)
-    out["layers"] = [_tree(stacked, lambda t, b=b: t[b].contiguous())
+    out["layers"] = [tree_map(lambda t, b=b: t[b].contiguous(), stacked)
                      for b in range(nb)]
     return out
+
+
+def train_state(ref_state: dict, cfg: ModelConfig, device) -> dict:
+    """The reference's ``init_train_state`` / ``train_step`` state
+    ``{"params", "opt": {step, master, m, v[, ef]}}`` -> the port's on
+    ``device``: every tree through ``model_params`` (blocks unstacked,
+    dtypes kept), ``step`` a 0-d int32 tensor."""
+    opt = ref_state["opt"]
+    out = {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                dtype=torch.int32, device=device)}
+    for name in ("master", "m", "v", "ef"):
+        if name in opt:
+            out[name] = model_params(opt[name], cfg, device)
+    return {"params": model_params(ref_state["params"], cfg, device),
+            "opt": out}

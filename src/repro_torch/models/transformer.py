@@ -13,16 +13,20 @@ of (nb, sub, B, K−1, C).
 Public entry points:
   init_params(cfg, gen)                          -> params dict
   forward(cfg, params, tokens|embeds, frontend=) -> (logits, aux)
+  train_loss(cfg, params, batch)                 -> (total, metrics)
   init_cache(cfg, batch, max_len, device)        -> serve cache dict
   prefill(cfg, params, tokens|embeds, cache)     -> (logits_last, cache)
   decode_step(cfg, params, token, cache, pos)    -> (logits, cache)
   decode_step_embeds(cfg, params, embeds, cache, pos) -> (logits, cache)
 
-``train_loss`` raises ``NotImplementedError``: training is not ported yet.
+With ``cfg.remat`` and grad enabled, ``forward`` recomputes each block in
+the backward pass (``torch.utils.checkpoint``), as the reference wraps
+its scanned block in ``jax.checkpoint``; the values are the same.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ckks import resolve_device
 from repro_torch.models import moe as moe_mod
@@ -181,18 +185,44 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, *, embeds=None,
     """tokens (B, S) or embeds (B, S, d), and for the vlm an optional
     ``frontend`` (B, T, frontend_dim): logits of every position (B, S, V)
     in float32, and the aux loss summed over blocks (0.0 without a
-    router)."""
+    router).  Each block is recomputed in the backward pass when
+    ``cfg.remat`` and grad are on."""
     x = _embed(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
     for lp in params["layers"]:
-        x, a = _block_forward(cfg, lp, x, positions, frontend=frontend)
+        if remat:
+            x, a = checkpoint(_block_forward, cfg, lp, x, positions,
+                              frontend=frontend, use_reentrant=False)
+        else:
+            x, a = _block_forward(cfg, lp, x, positions, frontend=frontend)
         aux = aux + a
     return _logits(cfg, params, x), aux
 
 
 def train_loss(cfg: ModelConfig, params, batch):
-    raise NotImplementedError("train_loss: training is not ported yet")
+    """batch: dict(tokens (B, S) | embeds (B, S, d), targets (B, S)[,
+    mask (B, S)][, frontend]).  The mean next-token NLL over the
+    (masked) positions from the float32 logits, plus 0.01 × the aux
+    loss: (total, {"loss", "aux_loss", "ppl_proxy"})."""
+    logits, aux = forward(cfg, params, batch.get("tokens"),
+                          embeds=batch.get("embeds"),
+                          frontend=batch.get("frontend"))
+    tgt = batch["targets"].long()
+    mask = batch.get("mask")
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp_min(mask.sum(), 1.0)
+    else:
+        denom = float(tgt.numel())
+    loss = nll.sum() / denom
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "ppl_proxy": torch.exp(torch.clamp_max(loss, 20.0))}
 
 
 # ---------------------------------------------------------------------------

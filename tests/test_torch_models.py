@@ -31,6 +31,7 @@ import repro_torch.configs.registry as reg
 from repro_torch import convert
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import common as tc
 from repro_torch.models import transformer as tf
 from repro_torch.serve import serve_decode_step, serve_prefill_step
@@ -327,15 +328,16 @@ def test_configs_equal_reference(arch):
 # -- what is not ported ------------------------------------------------------
 
 
-def test_audio_train_and_mesh_raise():
-    """Training and the tensor-parallel mesh are not ported (the audio
-    family's frame input is: ``tests/test_torch_families.py``)."""
-    cfg = get_smoke_config("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="training"):
-        tf.train_loss(cfg, {}, {})
+def test_audio_train_and_mesh_raise(tmp_path):
+    """The tensor-parallel mesh is not ported: both launchers refuse
+    ``--tp 2`` (training is ported: ``tests/test_torch_train.py``; the
+    audio family's frame input too: ``tests/test_torch_families.py``)."""
     with pytest.raises(NotImplementedError, match="multi-device schedule"):
         launch_serve.main(["--arch", "internlm2-1.8b", "--smoke", "--tp", "2",
                            "--device", CPU])
+    with pytest.raises(NotImplementedError, match="multi-device schedule"):
+        launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--tp", "2",
+                           "--ckpt-dir", str(tmp_path), "--device", CPU])
 
 
 def test_cache_defaults_to_cuda_and_raises_without_it():
