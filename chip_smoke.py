@@ -195,6 +195,23 @@ Phases, each printing its lines before the last:
    deterministic algorithms: 4 steps with a checkpoint every 2, a resume
    to step 6 (its line printed), the state and metrics equal to 6
    uninterrupted steps;
+3i. sharded — the multi-device HE schedule on ranks that time-share the
+   card (``repro_torch.launch.mesh.spawn``, gloo on ``cuda:0``; the parent
+   frees its memory first and the ranks load the kernels it built).  Two
+   ranks (data 1 × model 2): phase 3's Set-B hemm 128³ from phase 3's
+   seed on ``schedule="sharded"`` under ``verify="error"`` (the census
+   admits each HLT: 2 all-reduces, no other collective, no host sync, no
+   int64 NTT), a warm-up, a counted call (kernel launches, the
+   collectives' calls and bytes beside ``plan.collective_bytes``,
+   ``max_memory_allocated``, stage ms) and a timed call; every rank's
+   output array-equal to phase 3's one-device ``"pallas"`` output (so its
+   decrypt is phase 3's), then ``"sharded_xla"`` array-equal to it, and a
+   toy program whose body reads a value back to the host refused with
+   JX003.  Four ranks (data 2 × model 2): a Set-B hemm 32³ and a σ/τ/σ
+   HLT batch of 3 (padded to the 2 ct ranks) array-equal to the
+   one-device program the parent ran first from the same seed.  Per rank
+   the same numbers are printed; these are times of processes sharing
+   one card, not a multi-GPU speed;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
@@ -221,7 +238,9 @@ path, ``launches_blockmm`` / ``launches_chain`` from the counted calls of
 phases 3b and 3d, ``launches_serve`` from phase 3e's step 2, the
 first flush with every program cached, ``launches_lm`` from phase
 3f's secure step 2, likewise, ``launches_families`` from phase 3g's
-secure step 2, and ``launches_train`` from phase 3h's full-width run) and,
+secure step 2, ``launches_train`` from phase 3h's full-width run, and
+``launches_sharded``: rank 0's launches over phase 3i's counted 2-rank
+call) and,
 last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
 imports nothing of JAX or of the ``repro`` package.
@@ -1554,7 +1573,7 @@ def phase_main(params, shape):
     from repro_torch.core.hemm import decrypt_matrix, encrypt_matrix, plan_hemm
 
     m, l, n = shape
-    rng = np.random.default_rng(20260)
+    rng = np.random.default_rng(MAIN_SEED)
     t0 = time.perf_counter()
     ctx = HEContext(CkksEngine(params, datapath="pallas"))
     plan = plan_hemm(ctx.eng, m, l, n)
@@ -1658,7 +1677,11 @@ def phase_main(params, shape):
     log(f"[main] unbatched timed call: stage ms {fmt(st)}")
     del uprog
     phase_schedules(ctx, plan, ctA, ctB, ctC)
-    return launches, ulaunches
+    raw = float(np.abs(decrypt_matrix(ctx.eng, ctx.keys, ctC, m, n)
+                       - A @ B).max())
+    main = dict(c0=ctC.c0.cpu(), c1=ctC.c1.cpu(), level=ctC.level,
+                scale=ctC.scale, err=raw, shape=shape, seed=MAIN_SEED)
+    return launches, ulaunches, main
 
 
 def four_signs(ctx, prog, A, B, ctA, ctB, ctC, rng, note: str,
@@ -3434,6 +3457,343 @@ def phase_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the multi-device HE schedule on ranks that share the card
+# ---------------------------------------------------------------------------
+
+
+def sharded_rank(spec: dict) -> dict:
+    """One rank of phase 3i (``launch.mesh.spawn`` runs it on every rank,
+    gloo on ``cuda:0``): the Set-B hemm of ``spec["shape"]`` on
+    ``CkksEngine(SET_B, datapath="pallas")`` from ``spec["seed"]`` (the
+    one-device run's seed, so keys and ciphertexts are its own), compiled
+    ``schedule="sharded"`` under ``verify="error"`` on a (data × model)
+    mesh; a warm-up call, a counted call (kernel launches, the
+    collectives' bytes, peak memory, stage ms) and a timed one.  Options:
+    ``xla``, the same hemm on ``"sharded_xla"`` after the context is
+    invalidated; ``batch3``, a 3-wide σ/τ/σ HLT batch on the ct ranks;
+    ``pad4``, the limb-padding case (:func:`sharded_pad_rank`);
+    ``planted``, a toy program whose body reads a value back to the host,
+    which the census must refuse (JX003).  Returns the outputs on the host
+    and the numbers."""
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import VerificationError, census
+    from repro_torch.analysis.diagnostics import VerificationWarning
+    from repro_torch.core import hlt_dist
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import HEContext, compile_hemm, compile_hlt
+    from repro_torch.core.hemm import decrypt_matrix, encrypt_matrix, plan_hemm
+    from repro_torch.core.params import SET_B, toy_params
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_mesh_for
+
+    warnings.simplefilter("ignore", VerificationWarning)   # AR004 at data 2
+    stems = sorted({s for s, _ in build.SIGNATURES.values()})
+    missing = [s for s in stems if not build._lib_path(s).exists()]
+    if missing:
+        raise RuntimeError(f"rank {dist.get_rank()}: the parent did not build "
+                           f"{missing}; a rank never builds")
+    build.load()
+    mesh = make_mesh_for(dist.get_world_size(), spec["model"], device="cuda",
+                         backend="gloo")
+    m, l, n = spec["shape"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(spec["seed"])
+    ctx = HEContext(CkksEngine(SET_B, datapath="pallas"), mesh=mesh,
+                    verify="error")
+    plan = plan_hemm(ctx.eng, m, l, n)
+    ctx.keygen(rng, rot_steps=plan.rot_steps)
+    A, B = rng.uniform(-1, 1, (m, l)), rng.uniform(-1, 1, (l, n))
+    ctA = encrypt_matrix(ctx.eng, ctx.keys, A, rng)
+    ctB = encrypt_matrix(ctx.eng, ctx.keys, B, rng)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prog = compile_hemm(ctx, plan, schedule="sharded")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cen = [census.take_census(run)["collectives"]
+           for run in (prog._step1, prog._step2)]
+    prog(ctA, ctB)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    collectives.reset()
+    ctC, stages = staged_call(prog, ctA, ctB)
+    launches = ops.launch_counts()
+    coll = dict(counts=dict(collectives.COUNTS), bytes=dict(collectives.BYTES))
+    peak = torch.cuda.max_memory_allocated()
+    _, timed = staged_call(prog, ctA, ctB)
+    err = float(np.abs(decrypt_matrix(ctx.eng, ctx.keys, ctC, m, n)
+                       - A @ B).max())
+    out = dict(rank=dist.get_rank(), coords=dict(mesh.coords),
+               c0=ctC.c0.cpu(), c1=ctC.c1.cpu(), level=ctC.level,
+               scale=ctC.scale, stages=stages, timed=timed, peak=peak,
+               launches=launches, coll=coll, census=cen,
+               plan_coll=prog.plan.collective_bytes,
+               setup_s=t1 - t0, compile_s=t2 - t1, err=err,
+               layouts=[hoist_layout(run) for run in (prog._step1,
+                                                      prog._step2)])
+    if spec.get("batch3"):
+        run = compile_hlt(ctx, [plan.ds_sigma, plan.ds_tau, plan.ds_sigma],
+                          schedule="sharded")
+        out["batch3"] = [(o.c0.cpu(), o.c1.cpu())
+                         for o in run([ctA, ctB, ctB])]
+        out["b_pad"] = int(run._slot_tables["diag"].shape[0])
+    if spec.get("pad4"):
+        out["pad4"] = sharded_pad_rank("cuda")
+    if spec.get("xla"):
+        del prog
+        ctx.invalidate()
+        gc.collect()
+        torch.cuda.empty_cache()
+        xprog = compile_hemm(ctx, plan, schedule="sharded_xla")
+        ctX, out["stages_xla"] = staged_call(xprog, ctA, ctB)
+        out["xla_equal"] = bool(torch.equal(ctX.c0, ctC.c0)
+                                and torch.equal(ctX.c1, ctC.c1))
+        out["xla_peak"] = torch.cuda.max_memory_allocated()
+        del xprog, ctX
+    if spec.get("planted"):
+        tctx = HEContext(CkksEngine(toy_params(logN=10, L=4, k=3, beta=2),
+                                    datapath="pallas"), mesh=mesh,
+                         verify="error")
+        tplan = plan_hemm(tctx.eng, 4, 4, 4)
+        tctx.keygen(np.random.default_rng(1), rot_steps=tplan.rot_steps)
+        orig = hlt_dist.make_sharded_hlt_fn
+
+        def planted(*a, **k):
+            body = orig(*a, **k)
+
+            def reads_back(args):
+                res = body(args)
+                res[0].sum().item()        # a device-to-host read
+                return res
+            return reads_back
+        hlt_dist.make_sharded_hlt_fn = planted
+        try:
+            compile_hlt(tctx, [tplan.ds_sigma, tplan.ds_tau],
+                        schedule="sharded")
+            out["planted"] = None
+        except VerificationError as e:
+            out["planted"] = sorted({d.rule for d in e.diagnostics})
+        finally:
+            hlt_dist.make_sharded_hlt_fn = orig
+    return out
+
+
+def sharded_pad_rank(device: str) -> dict:
+    """The limb-padding case of phase 3i, on a (data 1 × model 4) mesh of
+    the spawned ranks: a toy hemm (``PAD_PARAMS``, ``PAD_SHAPE``) whose
+    extended bases (M = 6 at Step 1, 5 at Step 2) 4 ranks do not divide,
+    so the last rank's rows are all padding (a copy of the last modulus,
+    zero operands), compiled ``"sharded"`` under ``verify="error"`` and
+    held array-equal to the one-device ``"pallas"`` hemm of the same
+    engine, keys and ciphertexts.  Returns the row layout, the kernel
+    launches of the sharded call, and whether the outputs are equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import HEContext, compile_hemm
+    from repro_torch.core.hemm import encrypt_matrix, plan_hemm
+    from repro_torch.core.params import toy_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+
+    mesh = make_mesh_for(4, 4, device=device, backend="gloo")
+    m, l, n = PAD_SHAPE
+    rng = np.random.default_rng(SHARDED_SEED4)
+    ctx = HEContext(CkksEngine(toy_params(**PAD_PARAMS), device=device,
+                               datapath="pallas"), mesh=mesh,
+                    verify="error")
+    plan = plan_hemm(ctx.eng, m, l, n)
+    ctx.keygen(rng, rot_steps=plan.rot_steps)
+    ctA = encrypt_matrix(ctx.eng, ctx.keys, rng.uniform(-1, 1, (m, l)), rng)
+    ctB = encrypt_matrix(ctx.eng, ctx.keys, rng.uniform(-1, 1, (l, n)), rng)
+    prog = compile_hemm(ctx, plan, schedule="sharded")
+    ops.reset_launch_counts()
+    got = prog(ctA, ctB)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    one = compile_hemm(HEContext(ctx.eng, ctx.keys), plan,
+                       schedule="pallas")(ctA, ctB)
+    tabs = [run._sharded[0] for run in (prog._step1, prog._step2)]
+    return dict(M=[t.M for t in tabs], M_pad=[t.M_pad for t in tabs],
+                rows_loc=[t.rows_loc for t in tabs],
+                model_rank=ctx.model_rank, launches=launches,
+                equal=bool(torch.equal(got.c0, one.c0)
+                           and torch.equal(got.c1, one.c1)
+                           and (got.level, got.scale)
+                           == (one.level, one.scale)))
+
+
+def hoist_layout(run) -> str:
+    """The hoist layout a sharded HLT takes for its hint's aliasing: the
+    unique inputs on every rank ("dedup") unless they outnumber a ct
+    rank's share of the batch ("element")."""
+    b_loc = run._slot_tables["diag"].shape[0] // run.ctx.n_ct
+    return "element" if run.plan.n_ct_slots > b_loc else "dedup"
+
+
+def sharded_reference(params, shape, seed: int) -> dict:
+    """The one-device ``"pallas"`` hemm and σ/τ/σ batch that the 4-rank run
+    of phase 3i is held to, from the same seed; residues on the host."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.compile import HEContext, compile_hemm, compile_hlt
+    from repro_torch.core.hemm import encrypt_matrix, plan_hemm
+    m, l, n = shape
+    rng = np.random.default_rng(seed)
+    ctx = HEContext(CkksEngine(params, datapath="pallas"))
+    plan = plan_hemm(ctx.eng, m, l, n)
+    ctx.keygen(rng, rot_steps=plan.rot_steps)
+    A, B = rng.uniform(-1, 1, (m, l)), rng.uniform(-1, 1, (l, n))
+    ctA = encrypt_matrix(ctx.eng, ctx.keys, A, rng)
+    ctB = encrypt_matrix(ctx.eng, ctx.keys, B, rng)
+    ctC = compile_hemm(ctx, plan, schedule="pallas")(ctA, ctB)
+    run = compile_hlt(ctx, [plan.ds_sigma, plan.ds_tau, plan.ds_sigma],
+                      schedule="pallas")
+    out = dict(c0=ctC.c0.cpu(), c1=ctC.c1.cpu(), level=ctC.level,
+               scale=ctC.scale,
+               batch3=[(o.c0.cpu(), o.c1.cpu()) for o in run([ctA, ctB, ctB])])
+    del ctx, plan, run, ctA, ctB, ctC
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_rank_output(tag: str, got: dict, want: dict) -> None:
+    import torch
+    if not (torch.equal(got["c0"], want["c0"])
+            and torch.equal(got["c1"], want["c1"])
+            and (got["level"], got["scale"]) == (want["level"],
+                                                 want["scale"])):
+        raise AssertionError(f"[{tag}] rank {got['rank']}: the sharded hemm "
+                             f"differs from the one-device \"pallas\" one")
+
+
+def check_pad_rank(p: dict) -> None:
+    """The limb-padding case of one rank: rows past M on the last ranks,
+    every kernel of the sharded body launched, outputs array-equal."""
+    r = p["model_rank"]
+    pad_rows = [max(0, min(loc, (r + 1) * loc - mm))
+                for mm, loc in zip(p["M"], p["rows_loc"], strict=True)]
+    if p["M"] != [6, 5] or p["M_pad"] != [8, 8]:
+        raise AssertionError(f"limb padding: M {p['M']}, M_pad {p['M_pad']}")
+    missing = [k for k in PAD_KERNELS if not p["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"limb padding, model rank {r}: {missing} not "
+                             f"launched ({p['launches']})")
+    if not p["equal"]:
+        raise AssertionError(f"limb padding, model rank {r}: the sharded "
+                             f"hemm differs from the one-device one")
+    log(f"[sharded4-pad] model rank {r} of 4: M {p['M']} -> M_pad "
+        f"{p['M_pad']}, rows a rank {p['rows_loc']}, padding rows on this "
+        f"rank {pad_rows}; launches {json.dumps(p['launches'])}; array-equal "
+        f"to the one-device \"pallas\" hemm")
+
+
+def log_rank(tag: str, r: dict) -> None:
+    gb = 1e9
+    log(f"[{tag}] rank {r['rank']} {r['coords']}: setup (plan, keygen, "
+        f"encrypt) {r['setup_s']:.1f} s, compile {r['compile_s']:.1f} s "
+        f"(census included); hoist layouts Step 1 / Step 2 "
+        f"{r['layouts']}; counted call stage ms {fmt(r['stages'])}; timed "
+        f"call {fmt(r['timed'])}; peak {r['peak'] / gb:.2f} GB "
+        f"(max_memory_allocated of this rank); collectives "
+        f"{json.dumps(r['coll']['counts'])}, bytes all-reduced "
+        f"{r['coll']['bytes']['all_reduce']} (plan.collective_bytes "
+        f"{r['plan_coll']}), gathered {r['coll']['bytes']['all_gather']}; "
+        f"census of Step 1 / Step 2 {r['census']}; launches "
+        f"{json.dumps({k: v for k, v in r['launches'].items() if v})}; "
+        f"raw max|C - A·B| {r['err']:.4e}")
+
+
+def phase_sharded(params, main: dict) -> dict:
+    """Phase 3i: the multi-device schedule on ranks that time-share the
+    card through gloo.  Two ranks (data 1 × model 2): the Set-B hemm 128³
+    of phase 3 on ``"sharded"``, array-equal on every rank to phase 3's
+    one-device ``"pallas"`` output (``main``), and on ``"sharded_xla"``
+    array-equal to it; the census of every HLT launch (2 all-reduces, no
+    other collective) and a planted host read refused as JX003.  Four
+    ranks (data 2 × model 2): the Set-B hemm 32³ and a σ/τ/σ batch of 3
+    (padded to the 2 ct ranks), array-equal to the one-device program;
+    then the same ranks as (data 1 × model 4): the limb-padding case
+    (:func:`sharded_pad_rank`) on the kernels.  Returns rank 0's kernel
+    launches over the 2-rank counted call."""
+    # the 4-rank product is 32³, which keeps the phase near its budget of
+    # 150 s (PERF.md §6)
+    import torch
+    from repro_torch.launch.mesh import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref4 = sharded_reference(params, SHARDED_SHAPE4, SHARDED_SEED4)
+    log(f"[sharded] one-device reference, hemm {SHARDED_SHAPE4} and the "
+        f"σ/τ/σ batch: {time.perf_counter() - t0:.1f} s; memory allocated "
+        f"by the parent now {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+    t0 = time.perf_counter()
+    outs = spawn(sharded_rank, 2, dict(model=2, shape=main["shape"],
+                                       seed=main["seed"], xla=True,
+                                       planted=True),
+                 device="cuda", backend="gloo", timeout=600)
+    log(f"[sharded] 2 ranks (data 1 × model 2, gloo, both on cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in outs:
+        check_rank_output("sharded", r, main)
+        log_rank("sharded", r)
+        if r["census"] != [{"all_reduce": 2}] * 2:
+            raise AssertionError(f"rank {r['rank']}: census {r['census']}")
+        if r["coll"]["counts"]["all_reduce"] != 4:
+            raise AssertionError(f"rank {r['rank']}: collectives "
+                                 f"{r['coll']['counts']}")
+        if not r["xla_equal"]:
+            raise AssertionError(f"rank {r['rank']}: \"sharded_xla\" differs "
+                                 f"from \"sharded\"")
+        if r["planted"] != ["JX003"]:
+            raise AssertionError(f"rank {r['rank']}: a planted host read "
+                                 f"drew {r['planted']}, not JX003")
+        if r["err"] != main["err"]:
+            raise AssertionError(f"rank {r['rank']}: decrypt error "
+                                 f"{r['err']} vs phase 3's {main['err']}")
+        log(f"[sharded] rank {r['rank']}: c0, c1 array-equal to phase 3's "
+            f"one-device \"pallas\" hemm; \"sharded_xla\" array-equal, stage "
+            f"ms {fmt(r['stages_xla'])}, peak {r['xla_peak'] / 1e9:.2f} GB; "
+            f"a planted host read refused with {r['planted']}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs4 = spawn(sharded_rank, 4, dict(model=2, shape=SHARDED_SHAPE4,
+                                        seed=SHARDED_SEED4, batch3=True,
+                                        pad4=True),
+                  device="cuda", backend="gloo", timeout=600)
+    log(f"[sharded] 4 ranks (data 2 × model 2, gloo, all on cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in outs4:
+        check_rank_output("sharded4", r, ref4)
+        for i, (g, w) in enumerate(zip(r["batch3"], ref4["batch3"],
+                                       strict=True)):
+            if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
+                raise AssertionError(f"rank {r['rank']}: σ/τ/σ batch element "
+                                     f"{i} differs from the one-device one")
+        if r["b_pad"] != 4:
+            raise AssertionError(f"rank {r['rank']}: batch 3 padded to "
+                                 f"{r['b_pad']}")
+        log_rank("sharded4", r)
+        log(f"[sharded4] rank {r['rank']}: hemm and the σ/τ/σ batch (padded "
+            f"to {r['b_pad']} over 2 ct ranks) array-equal to the one-device "
+            f"\"pallas\" program")
+        check_pad_rank(r["pad4"])
+    log("[sharded] these times are of ranks that time-share one card "
+        "through a host-side collective: not a multi-GPU speed")
+    return outs[0]["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 4: whole program on the kernels vs on the plain versions
 # ---------------------------------------------------------------------------
 
@@ -3701,6 +4061,20 @@ TRAIN_MB_RTOL = 1e-3
 TRAIN_CPU_ARCHS = ("internlm2-1.8b", "granite-moe-3b-a800m", "mamba2-780m")
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
 
+#: phase 3i: the 4-rank run's Set-B product and seed (the 2-rank run takes
+#: phase 3's hemm 128³ and its seed)
+SHARDED_SHAPE4 = (32, 32, 32)
+#: phase 3i's limb-padding case: M = L+1+k = 6 extended limbs at Step 1
+#: (5 at Step 2) on 4 limb ranks, so the last rank holds padding rows only
+PAD_PARAMS = dict(logN=10, L=3, k=2, beta=2)
+PAD_SHAPE = (4, 4, 4)
+#: the kernels of the sharded body that the padded rows go through
+PAD_KERNELS = ("intt_scale", "baseconv_ntt", "fused_hlt_indexed",
+               "moddown_finish")
+#: phase 3's seed (keys, A, B), which phase 3i's 2-rank run repeats
+MAIN_SEED = 20260
+SHARDED_SEED4 = 20261
+
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
@@ -3745,7 +4119,7 @@ def main() -> int:
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    batched, unbatched = phase_main(SET_B, shape)
+    batched, unbatched, main_out = phase_main(SET_B, shape)
     # each kernel's launches come from the counted call of the path that
     # runs it (ntt / intt: the batched main path; both paths run 6·l; the
     # API kernels: the kernel API's counted run)
@@ -3800,6 +4174,13 @@ def main() -> int:
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    sharded = phase_sharded(SET_B, main_out)
+    del main_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] whole command {time.perf_counter() - T_START:.1f} s")
@@ -3808,7 +4189,7 @@ def main() -> int:
         dict(r.entry(launches[name]), launches_blockmm=blockmm[name],
              launches_chain=chain[name], launches_serve=serve[name],
              launches_lm=lm[name], launches_families=families[name],
-             launches_train=train[name])
+             launches_train=train[name], launches_sharded=sharded[name])
         for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,20 @@
 """Compile-time static verifier for the port's HE programs — counterpart
 of ``repro/analysis``.
 
-Three passes run over compiled plans before execution, from
+Four passes run over compiled plans before execution, from
 ``compile_hlt`` / ``compile_hemm`` / ``compile_blockmm`` /
 ``compile_hemm_chain`` behind ``HEContext(verify="error"|"warn"|"off")``:
 
 * ``level_scale`` — symbolic CKKS level/scale tracker (LS rules)
 * ``smem``        — the fused kernels' shared-memory budget (VM001)
 * ``arena``       — arena generation, slot tables, aliasing hints (AR)
+* ``census``      — one run of the compiled body: collectives, kernels,
+  host syncs, named NTTs (JX)
 
 ``verify.verify_program(prog)`` runs every applicable pass on a compiled
 program and returns the list of :class:`Diagnostic`; the CLI
 (``python -m repro_torch.analysis.lint``) sweeps representative programs
-over ``configs/fame_sets.py`` ``FAME_VERIFY_SETS``.  The reference's
-jaxpr linter (JX rules) is not ported (``verify.py``).
+over ``configs/fame_sets.py`` ``FAME_VERIFY_SETS``.
 """
 from repro_torch.analysis.diagnostics import (RULES, Diagnostic,
                                               VerificationError,

@@ -4,19 +4,19 @@ tables.
 
 * AR001: the owning context was invalidated after the compile (the
   static twin of the run-time generation guard).
-* AR002: a batched ``"pallas"`` compile's slot table is malformed — the
-  batch index → diagonal-set slot tensor the fused kernel gathers by
-  disagrees with the plan, points past the stacked operands, or the
-  stacked operands are not the arena's; or the ``ct_slots`` hint is not
-  in first-appearance order (``core/compile.py`` ``_canonical_slots``).
-  The reference checks the same properties of its sharded slot tables;
-  the port's only slot tables are the fused kernel's.
+* AR002: a batched compile's slot table is malformed — the batch index →
+  diagonal-set slot tensor the fused kernel gathers by disagrees with the
+  plan or points past the stacked operands (on ``"pallas"`` also: the
+  stacked operands are not the arena's; on the sharded schedules: the
+  table does not cover the batch padded to the ct ranks, or the hint's
+  ct table disagrees with the plan); or the ``ct_slots`` hint is not in
+  first-appearance order (``core/compile.py`` ``_canonical_slots``).
 * AR003: a ``ct_slots`` hint whose hoist dedup the schedule cannot
   deliver (info: the plan's ``hoist_bytes`` overstates the dedup, the
   math is right).
-* AR004 belongs to the sharded schedule (a hint wider than one rank's
-  batch share); the port has no ct axis yet (no multi-device schedule), so
-  the pass cannot raise it.
+* AR004: a ``"sharded"`` hint with more unique ciphertexts than one ct
+  rank's batch share: execution takes the per-element hoist layout
+  (warning: correct, but each rank hoists its share).
 """
 from __future__ import annotations
 
@@ -36,6 +36,9 @@ _NO_DEDUP_SCHEDULES = {
     "mo": ("info", _LOOP_CAVEAT),
     "hoisted": ("info", _LOOP_CAVEAT),
     "baseline": ("info", "never hoists — the hint is inert"),
+    "sharded_xla": ("info", "re-hoists per batch element inside the SPMD "
+                            "program — the hint is inert (and the plan "
+                            "already prices the per-element hoist)"),
 }
 
 
@@ -87,6 +90,39 @@ def _slot_table_faults(run) -> list:
     return bad
 
 
+def _sharded_table_faults(run, batch: int) -> list:
+    """What is wrong with a sharded compile's slot tables (empty when well
+    formed)."""
+    plan = run.plan
+    tables = run._slot_tables or {}
+    diag_tab = tables.get("diag")
+    n_ct = max(1, run.ctx.n_ct)
+    bad = []
+    if not isinstance(diag_tab, torch.Tensor) or diag_tab.dim() != 1 \
+            or diag_tab.shape[0] < batch or diag_tab.shape[0] % n_ct:
+        return [f"diag table {getattr(diag_tab, 'shape', diag_tab)} is not "
+                f"a 1-D ct-axis multiple covering the batch (batch {batch}, "
+                f"n_ct {n_ct})"]
+    b_pad = diag_tab.shape[0]
+    ids = diag_tab.tolist()
+    if diag_tab.dtype.is_floating_point or diag_tab.dtype == torch.bool:
+        bad.append(f"diag table dtype {diag_tab.dtype} is not integral")
+    elif min(ids) < 0 or max(ids) >= plan.n_diag_slots:
+        bad.append(f"diag slot ids outside [0, {plan.n_diag_slots})")
+    elif tuple(ids[:batch]) != plan.diag_slots:
+        bad.append("diag table disagrees with plan.diag_slots")
+    ct_tab = tables.get("ct")
+    if ct_tab is not None and plan.ct_slots is not None:
+        cts = ct_tab.tolist()
+        if tuple(ct_tab.shape) != (b_pad,):
+            bad.append(f"ct table shape {tuple(ct_tab.shape)} != ({b_pad},)")
+        elif min(cts) < 0 or max(cts) >= plan.n_ct_slots:
+            bad.append(f"ct slot ids outside [0, {plan.n_ct_slots})")
+        elif tuple(cts[:batch]) != plan.ct_slots:
+            bad.append("ct table disagrees with plan.ct_slots")
+    return bad
+
+
 def audit_hlt(run, *, program: str = "hlt") -> list:
     """AR002/AR003 for one CompiledHLT (its generation must be current:
     run :func:`check_generation` first)."""
@@ -108,13 +144,42 @@ def audit_hlt(run, *, program: str = "hlt") -> list:
             hint="use schedule='pallas' (identity-deduped hoisting), or "
                  "drop the hint"))
 
-    # AR002 — the fused kernel's slot table against the plan and the arena
-    if plan.schedule == "pallas" and plan.batch is not None:
-        for msg in _slot_table_faults(run):
+    # AR002 — the slot tables against the plan (and the arena)
+    if plan.schedule.startswith("sharded"):
+        faults = _sharded_table_faults(run, batch)
+        if plan.ct_slots is not None and _canonical_slots_fault(plan):
+            faults.append("ct_slots hint is not first-appearance canonical")
+    elif plan.schedule == "pallas" and plan.batch is not None:
+        faults = _slot_table_faults(run)
+    else:
+        faults = []
+    for msg in faults:
+        diags.append(Diagnostic(
+            rule="AR002", severity="error", program=program,
+            stage="slot_tables", message=msg,
+            hint="slot tables and stacked operands are built by "
+                 "compile_hlt from the arena — recompile, do not patch "
+                 "them in place"))
+
+    # AR004 — the dedup layout falls back to per-element at call time
+    if plan.schedule == "sharded" and plan.n_ct_slots is not None \
+            and run._slot_tables:
+        b_loc = run._slot_tables["diag"].shape[0] // max(1, run.ctx.n_ct)
+        if plan.n_ct_slots > b_loc:
             diags.append(Diagnostic(
-                rule="AR002", severity="error", program=program,
-                stage="slot_tables", message=msg,
-                hint="slot tables and stacked operands are built by "
-                     "compile_hlt from the arena — recompile, do not "
-                     "patch them in place"))
+                rule="AR004", severity="warning", program=program,
+                stage="ct_slots[sharded]",
+                message=f"dedup hint has {plan.n_ct_slots} unique "
+                        f"ciphertexts but a ct rank's batch share is only "
+                        f"{b_loc} — execution will fall back to the "
+                        f"per-element hoist layout",
+                hint="the fallback is correct but each rank hoists its "
+                     "local share; expect hoist_bytes_naive, not "
+                     "hoist_bytes"))
     return diags
+
+
+def _canonical_slots_fault(plan) -> bool:
+    from repro_torch.core.compile import _canonical_slots
+    return _canonical_slots(plan.ct_slots, len(plan.ct_slots),
+                            "ct_slots") != plan.ct_slots

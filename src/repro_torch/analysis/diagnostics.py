@@ -7,9 +7,8 @@ turns error-severity diagnostics into a :class:`VerificationError` under
 ``verify="error"`` and into :class:`VerificationWarning` warnings under
 ``verify="warn"``.
 
-The JX rules stay in the catalog so that the ids mean the same in both
-packages; their pass (the jaxpr linter) is not in the port
-(``analysis/verify.py``).
+The JX rules are the census' (``analysis/census.py``), the port's
+counterpart of the reference's jaxpr linter.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ RULES = {
     "LS002": "scale mismatch between addends",
     "LS003": "rescale past the end of the modulus chain",
     "LS004": "level mismatch between operands of add/mult",
-    # jaxpr invariant linter (the reference's; not in the port)
+    # jaxpr invariant linter (the port's census, analysis/census.py)
     "JX001": "sole-collective invariant violated in the sharded program",
     "JX002": "pallas_call missing from the fused datapath",
     "JX003": "host round-trip (callback primitive) in the hot path",

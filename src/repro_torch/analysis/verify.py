@@ -13,16 +13,16 @@ VF000 warning, so warn mode never breaks a working compile; ``"off"`` is
 a no-op.
 
 The passes: LS (``level_scale``), VM001 against a block's shared memory
-(``smem``) and AR (``arena``).  The reference's fourth pass, the jaxpr
-linter (JX001–JX004), is not here: JX001 means something only under the
-sharded schedule, and JX002/JX004 become a launch census of the compiled
-program; both wait with the multi-device schedule, not ported yet.
+(``smem``), AR (``arena``) and the census (``census``, JX001–JX004: the
+counterpart of the reference's jaxpr linter, one run of the compiled
+body on zero ciphertexts).  A program the earlier passes found in error
+(stale, or with a malformed slot table) is not run by the census.
 """
 from __future__ import annotations
 
 import warnings
 
-from repro_torch.analysis import arena, smem
+from repro_torch.analysis import arena, census, smem
 from repro_torch.analysis.diagnostics import (Diagnostic, VerificationError,
                                               VerificationWarning, errors)
 from repro_torch.analysis.level_scale import (CtState, ScaleTracker,
@@ -46,6 +46,8 @@ def verify_compiled_hlt(run, *, program: str = "hlt") -> list:
     diags += t.diagnostics
     diags += smem.check_smem(ctx.eng.params, plan, program=program)
     diags += arena.audit_hlt(run, program=program)
+    if not errors(diags):
+        diags += census.lint_compiled_hlt(run, program=program)
     return diags
 
 

@@ -117,13 +117,13 @@ class CkksEngine:
         if self.datapath == "pallas":
             return ops.ntt(x[None], view.psi_brv_mont, view.moduli_u32,
                            view.qneg_inv)[0]
-        return ntt.ntt_raw(x, view.psi_brv, view.moduli)
+        return ntt.ntt(x, view.psi_brv, view.moduli)
 
     def _intt(self, x, view):
         if self.datapath == "pallas":
             return ops.intt(x[None], view.psi_inv_brv_mont, view.n_inv_mont,
                             view.moduli_u32, view.qneg_inv)[0]
-        return ntt.intt_raw(x, view.psi_inv_brv, view.n_inv, view.moduli)
+        return ntt.intt(x, view.psi_inv_brv, view.n_inv, view.moduli)
 
     # -- fused base-change tables (cached per level, float64 correction) -----
 

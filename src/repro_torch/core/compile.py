@@ -9,9 +9,12 @@ the single-device schedules of ``repro/core/compile.py``::
     prog.plan                                     # schedule, chunk, d_pad,
                                                   # byte and rotation counts
 
-``schedule`` is one of ``SCHEDULES``: the fused ``"pallas"`` (the kernels)
-or a reference schedule ``"baseline"`` / ``"hoisted"`` / ``"mo"``
-(``core/hlt.py``).  On ``"pallas"``, ``compile_hlt`` compiles one DiagSet
+``schedule`` is one of ``SCHEDULES``: the fused ``"pallas"`` (the kernels),
+a reference schedule ``"baseline"`` / ``"hoisted"`` / ``"mo"``
+(``core/hlt.py``), or the multi-device ``"sharded"`` / ``"sharded_xla"``
+(``core/hlt_dist.py``: the fused kernels, or plain torch, on each rank's
+limb rows and ciphertext block of ``HEContext(mesh=)``; without a mesh
+one rank holds everything).  On ``"pallas"``, ``compile_hlt`` compiles one DiagSet
 (a single-ciphertext HLT: one ``fused_hlt`` launch) or a sequence of them
 (a slot-indexed batch: one ``fused_hlt_indexed`` launch); a reference
 schedule runs a batch as a loop of single executions.
@@ -31,7 +34,8 @@ datapath.  So on an ``"xla"`` engine, ``schedule="mo"`` launches no kernel.
 
 ``schedule=None`` lets the cost model pick (``core/costmodel.py``
 ``select_schedule``): ``"pallas"`` wherever the fused kernels take the
-parameter set, else ``"mo"``; ``plan.schedule`` records the pick.
+parameter set, else ``"mo"``, and with a mesh ``"sharded"`` where its
+per-rank bytes are fewer; ``plan.schedule`` records the pick.
 ``rotation_chunk=None`` means chunk = d on every schedule: on
 ``"pallas"`` the chunk only sets the d-padding (d_pad is the next
 multiple of the chunk) while the CUDA kernel loops over all d_pad
@@ -58,14 +62,19 @@ from repro_torch.analysis import verify as _verify
 from repro_torch.analysis.diagnostics import VerificationError
 from repro_torch.analysis.level_scale import trace_chain
 from repro_torch.core import hlt as hlt_mod
+from repro_torch.core import hlt_dist
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
 from repro_torch.core.costmodel import (SMEM_PER_BLOCK, hlt_hoist_bytes,
                                         hlt_stage_costs, pick_rotation_chunk,
                                         select_chain_schedules,
-                                        select_schedule, step2_chunk)
+                                        select_schedule,
+                                        sharded_collective_bytes, step2_chunk)
 from repro_torch.core.hlt import (SCHEDULES, DiagSet, Hoisted, hoist,
                                   hoist_batched)
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import logical_axis_size, make_rules
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import Mesh, check_mesh
 
 
 class _StrongKey:
@@ -109,14 +118,24 @@ class OperandArena:
 
     @property
     def nbytes(self) -> int:
-        total = 0
-        for _, value in self._entries.values():
-            for t in value:
-                total += t.numel() * t.element_size()
-        return total
+        return sum(t.numel() * t.element_size()
+                   for _, value in self._entries.values()
+                   for t in _tensors(value))
 
     def clear(self) -> None:
         self._entries.clear()
+
+
+def _tensors(value):
+    """The tensors in an arena value (nested tuples, lists and dicts)."""
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _tensors(v)
 
 
 class HEContext:
@@ -143,14 +162,27 @@ class HEContext:
     ``counters`` are monotonic lifetime statistics (not reset by
     ``invalidate``): ``hlt_launches`` counts CompiledHLT calls (one
     rotation-datapath launch each) and ``program_launches`` counts
-    program calls (HEMMProgram, BlockMMProgram, HEMMChainProgram)."""
+    program calls (HEMMProgram, BlockMMProgram, HEMMChainProgram).
+
+    ``mesh`` (``launch/mesh.py`` :class:`~repro_torch.launch.mesh.Mesh`,
+    this process one of its ranks) makes the ``"sharded"`` schedules
+    multi-device: limbs over the ``model`` ranks (``n_model``), the
+    ciphertext batch over ``pod`` × ``data`` (``n_ct``), per
+    ``distributed/sharding.py``'s rules; the cost model sees the sizes and
+    may pick ``"sharded"`` on its own.  Every rank compiles and calls the
+    same programs on the same inputs.  The engine's device must be of the
+    mesh's type; an object that is not a mesh is refused."""
 
     VERIFY_MODES = ("error", "warn", "off")
     DATAPATHS = ("pallas", "xla")
 
     def __init__(self, eng: CkksEngine, keys: Optional[Keys] = None,
                  datapath: str = "pallas", verify: str = "warn",
-                 smem_headroom: float = 1.0):
+                 smem_headroom: float = 1.0, mesh: Optional[Mesh] = None):
+        if check_mesh(mesh) is not None and \
+                mesh.device.type != eng.device.type:
+            raise ValueError(f"engine on {eng.device}, mesh on "
+                             f"{mesh.device}")
         if datapath not in self.DATAPATHS:
             raise ValueError(f"datapath={datapath!r} not in {self.DATAPATHS}")
         if verify not in self.VERIFY_MODES:
@@ -165,13 +197,26 @@ class HEContext:
         self.keys = keys
         self.arena = OperandArena()
         self._compiled: dict = {}
+        self._pipelines: dict = {}
         self._generation = 0
         self.counters = {"hlt_launches": 0, "program_launches": 0}
+        self.mesh = mesh
+        self.rules = make_rules(mesh)
+        self.n_model = logical_axis_size(self.rules, "limbs")
+        self.n_ct = logical_axis_size(self.rules, "ct_batch")
+        self.n_devices = self.n_model * self.n_ct
+        # this rank's place: its limb block and its ciphertext block
+        self.limb_axes = hlt_dist._physical_axes(self.rules, "limbs")
+        self.ct_axes = hlt_dist._physical_axes(self.rules, "ct_batch")
+        self.model_rank = 0 if mesh is None else mesh.index(self.limb_axes)
+        self.ct_rank = 0 if mesh is None else mesh.index(self.ct_axes)
 
     @classmethod
     def create(cls, params, rng, rot_steps: Sequence[int] = (),
-               device=None) -> "HEContext":
-        ctx = cls(CkksEngine(params, device=device))
+               device=None, mesh: Optional[Mesh] = None) -> "HEContext":
+        if device is None and mesh is not None:
+            device = mesh.device
+        ctx = cls(CkksEngine(params, device=device), mesh=mesh)
         ctx.keygen(rng, rot_steps=rot_steps)
         return ctx
 
@@ -191,6 +236,7 @@ class HEContext:
         from before refuse to run."""
         self.arena.clear()
         self._compiled.clear()
+        self._pipelines.clear()
         self._generation += 1
 
     def _check_generation(self, gen: int) -> None:
@@ -198,6 +244,24 @@ class HEContext:
             raise RuntimeError(
                 "stale compiled object: its HEContext was invalidated "
                 "(re-keygen?) after compilation — recompile")
+
+    def _sharded_pipeline(self, tabs, rank_tabs, d_pad: int, nbeta: int,
+                          datapath: str = "pallas",
+                          chunk: Optional[int] = None,
+                          hoist_layout: str = "dedup",
+                          stages: str = "pallas"):
+        """The rank's body of the sharded program at one compile point
+        (``hlt_dist.make_sharded_hlt_fn``), built once."""
+        key = ("sharded", datapath, stages, hoist_layout, tabs.level,
+               tabs.n_model, d_pad, nbeta, chunk)
+        fn = self._pipelines.get(key)
+        if fn is None:
+            fn = hlt_dist.make_sharded_hlt_fn(
+                tabs, self.rules, rank_tabs, d_pad=d_pad, nbeta=nbeta,
+                datapath=datapath, chunk=chunk, hoist_layout=hoist_layout,
+                stages=stages)
+            self._pipelines[key] = fn
+        return fn
 
 
 # Context pool for the deprecated shims (``hlt()``, ``hlt_batched()``): one
@@ -221,9 +285,7 @@ def legacy_context(eng: CkksEngine, keys: Keys) -> HEContext:
 
 def _check_schedule(schedule: str, rotation_chunk) -> None:
     if schedule not in SCHEDULES:
-        raise ValueError(f"schedule={schedule!r}: the port runs "
-                         f"{SCHEDULES} on one device (no mesh, so no "
-                         f"\"sharded\")")
+        raise ValueError(f"schedule={schedule!r} is not one of {SCHEDULES}")
     if rotation_chunk is not None and (not isinstance(rotation_chunk, int)
                                        or rotation_chunk < 1):
         raise ValueError(f"rotation_chunk={rotation_chunk!r}: a positive "
@@ -263,8 +325,12 @@ class HLTPlan:
     hoisting products (u32 words, ``costmodel.hlt_hoist_bytes``; 0 on
     ``baseline``, which does not hoist).  ``stage_costs`` holds the
     per-stage counts of ``costmodel.hlt_stage_costs``.
-    ``collective_bytes``, ``n_model`` and ``n_ct`` describe a mesh: 0, 1
-    and 1 on the port, which has none.  ``smem_headroom`` is the fraction
+    ``collective_bytes`` is the cross-device traffic the cost model
+    predicts for one execution (``costmodel.sharded_collective_bytes``, 0
+    off the sharded schedules) and ``n_model`` / ``n_ct`` the mesh
+    factorization the compile saw (1 and 1 off them).  Under ``"sharded"``
+    ``operand_bytes`` counts the operands of every rank together, as the
+    reference's global arrays.  ``smem_headroom`` is the fraction
     of a block's shared memory the compile allowed the fused kernels
     (``HEContext.smem_headroom``; the verifier's VM001 reads it)."""
 
@@ -339,6 +405,25 @@ def _pallas_operands(ctx: HEContext, uniq, batch, level: int, nbeta: int,
     return operands
 
 
+def _sharded_operands(ctx: HEContext, uniq, level: int, nbeta: int,
+                      d_pad: int, tabs) -> tuple:
+    """The rank's row block of the stacked operands of the unique
+    DiagSets (``hlt_mod._build_pallas_operands(limbs=)``), one stacked
+    tensor per operand; rows past the basis are zero."""
+    eng = ctx.eng
+    lo = ctx.model_rank * tabs.rows_loc
+    operands = tuple(
+        torch.zeros((len(uniq),) + s, dtype=torch.int32, device=eng.device)
+        for s in hlt_mod.operand_shapes(eng, level, nbeta, d_pad,
+                                        rows=tabs.rows_loc))
+    for s, ds in enumerate(uniq):
+        hlt_mod._build_pallas_operands(
+            eng, ds, ctx.keys, level, nbeta, d_pad,
+            out=tuple(t[s] for t in operands),
+            limbs=(lo, lo + tabs.rows_loc))
+    return operands
+
+
 def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
                 level: Optional[int] = None, schedule: Optional[str] = None,
                 rotation_chunk: Optional[int] = None,
@@ -348,8 +433,9 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
     operand slot).  ``level`` defaults to the top; ``schedule=None`` and
     ``rotation_chunk=None`` defer to the cost model.  ``ct_slots`` is an
     optional aliasing hint (equal ids: the same ciphertext will be passed)
-    that sizes the plan's hoist accounting; execution re-derives the
-    aliasing from object identity.  Memoized on the context."""
+    that sizes the plan's hoist accounting (and, sharded, pre-builds the
+    slot table of that pattern); execution re-derives the aliasing from
+    object identity.  Memoized on the context."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
     single = isinstance(diags, DiagSet)
@@ -366,13 +452,15 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
     d_max = max(d_list)
     if schedule is None:
         schedule = select_schedule(
-            eng.params, nbeta=nbeta, smem_bytes=ctx.smem_bytes, d=d_max,
+            eng.params, nbeta=nbeta, smem_bytes=ctx.smem_bytes,
+            n_model=ctx.n_model, n_ct=ctx.n_ct, d=d_max,
             ctb=batch if batch is not None else 1,
             n_uniq=None if ct_slots is None else len(set(ct_slots)))
     _check_schedule(schedule, rotation_chunk)
-    # the context's knob covers the fused schedule only; the reference
-    # schedules always hoist by the chain
-    datapath = ctx.datapath if schedule == "pallas" else "xla"
+    sharded = schedule.startswith("sharded")
+    # the context's knob covers the fused schedules only; the reference
+    # schedules and the sharded_xla baseline always hoist by the chain
+    datapath = ctx.datapath if schedule in ("pallas", "sharded") else "xla"
     memo_key = ("hlt", schedule, level, batch, rotation_chunk, ct_slots,
                 ctx.verify, datapath,
                 tuple(_StrongKey(ds) for ds in diag_list))
@@ -384,16 +472,39 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
              else min(rotation_chunk, d_max))
     d_pad = -(-d_max // chunk) * chunk
     uniq, slots = _dedup_by_identity(diag_list)
-    operands = (_pallas_operands(ctx, uniq, batch, level, nbeta, d_pad)
-                if schedule == "pallas" else ())
-    op_bytes = sum(t.numel() * t.element_size() for t in operands)
     ctb = 1 if batch is None else batch
+    # the ct table's aliasing: the hint's, all distinct without one
+    pattern = ct_slots or tuple(range(ctb))
+    sharded_tabs = slot_tables = None
+    if sharded:
+        # the tables of this rank and the stacked operands of its rows;
+        # the slot tables padded to the ct-axis multiple (arena-owned)
+        _, sharded_tabs = ctx.arena.slot(
+            "sharded_tables", eng, (level, ctx.n_model),
+            lambda: _build_sharded_tables(ctx, level))
+        operands = _sharded_operands(ctx, uniq, level, nbeta, d_pad,
+                                     sharded_tabs[0])
+        b_pad = -(-ctb // ctx.n_ct) * ctx.n_ct
+        _, slot_tables = ctx.arena.slot(
+            "sharded_slot_tables", eng, (level, tuple(slots), pattern, b_pad),
+            lambda: hlt_dist.build_slot_tables(slots, pattern, b_pad,
+                                               device=eng.device))
+    else:
+        operands = (_pallas_operands(ctx, uniq, batch, level, nbeta, d_pad)
+                    if schedule == "pallas" else ())
+        if schedule == "pallas" and batch is not None:
+            slot_tables = hlt_dist.build_slot_tables(slots, pattern, batch,
+                                                     device=eng.device)
+    n_model, n_ct = (ctx.n_model, ctx.n_ct) if sharded else (1, 1)
+    # every rank holds its rows of the operands: the plan counts them all
+    op_bytes = n_model * sum(t.numel() * t.element_size() for t in operands)
     # one hoisting product per unique input (the hint; all distinct without
-    # one), none on baseline
+    # one), none on baseline, one an element on sharded_xla
     m_ext = len(eng.tools.digit_bases(level)[0][2])
     h_unit = int(hlt_hoist_bytes(eng.params, nbeta=nbeta, n_limbs_ext=m_ext))
     n_ct_slots = None if ct_slots is None else len(set(ct_slots))
-    n_hoist = ctb if n_ct_slots is None else n_ct_slots
+    n_hoist = (ctb if n_ct_slots is None or schedule == "sharded_xla"
+               else n_ct_slots)
     hoists = schedule != "baseline"
     plan = HLTPlan(
         schedule=schedule, datapath=datapath, level=level, batch=batch,
@@ -404,12 +515,18 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
                              op_bytes // len(uniq) * len(diag_list)),
         stage_costs=hlt_stage_costs(
             eng.params, d=d_max, d_pad=d_pad, nbeta=nbeta, chunk=chunk,
-            n_limbs_ext=m_ext, ctb=ctb, n_hoist=n_hoist),
+            n_limbs_ext=m_ext, n_model=n_model, ctb=ctb, n_hoist=n_hoist),
+        # the all-reduce moves the padded batch, not the logical one
+        collective_bytes=(sharded_collective_bytes(
+            eng.params, n_model=n_model, ctb=-(-ctb // n_ct) * n_ct)
+            if sharded else 0),
+        n_model=n_model, n_ct=n_ct,
         ct_slots=ct_slots, n_ct_slots=n_ct_slots,
         hoist_bytes=h_unit * n_hoist if hoists else 0,
         hoist_bytes_naive=h_unit * ctb if hoists else 0,
         smem_headroom=ctx.smem_headroom)
-    run = CompiledHLT(ctx, plan, tuple(diag_list), operands)
+    run = CompiledHLT(ctx, plan, tuple(diag_list), operands,
+                      sharded_tabs=sharded_tabs, slot_tables=slot_tables)
     # the verifier runs before the memo store, so a rejected compile is
     # never cached; the memo key carries ctx.verify
     _verify.enforce(ctx, run)
@@ -417,20 +534,34 @@ def compile_hlt(ctx: HEContext, diags: Union[DiagSet, Sequence[DiagSet]], *,
     return run
 
 
+def _build_sharded_tables(ctx: HEContext, level: int) -> tuple:
+    """(ShardTables, this rank's tables on the engine's device)."""
+    tabs = hlt_dist.build_shard_tables(ctx.eng.params, level, ctx.n_model)
+    return tabs, hlt_dist.rank_tables(tabs, ctx.model_rank, ctx.eng.device)
+
+
 class CompiledHLT:
     """A compiled HLT: call a single compile with one ciphertext or
     hoisting product, a batched one with a sequence of them (repeated
-    objects share one hoisting slot).  ``baseline`` takes ciphertexts
-    only: it has no hoisting product."""
+    objects share one hoisting slot).  ``baseline`` and the sharded
+    schedules take ciphertexts only (the sharded program hoists inside,
+    on each rank's rows)."""
 
-    def __init__(self, ctx: HEContext, plan: HLTPlan, diag_list, operands):
+    def __init__(self, ctx: HEContext, plan: HLTPlan, diag_list, operands,
+                 sharded_tabs=None, slot_tables=None):
         self.ctx = ctx
         self.plan = plan
         self._diags = diag_list
         self._operands = operands       # "pallas": one DiagSet's, or stacked
-        self._diag_slots = (None if plan.batch is None else
-                            torch.tensor(plan.diag_slots, dtype=torch.int32,
-                                         device=ctx.eng.device))
+        self._sharded = sharded_tabs    # (ShardTables, rank tables) | None
+        # {"diag", "ct"}: the element -> slot tables of a batched "pallas"
+        # or a sharded compile (padded to the ct-axis multiple), the ct
+        # table of the hint's aliasing (all distinct without one): a call
+        # with that aliasing copies nothing to the device
+        self._slot_tables = slot_tables
+        self._diag_slots = (slot_tables["diag"] if plan.schedule == "pallas"
+                            and slot_tables else None)
+        self._ct_pattern = plan.ct_slots or tuple(range(plan.batch or 1))
         self._gen = ctx._generation
 
     def _hoist_items(self, items):
@@ -466,17 +597,39 @@ class CompiledHLT:
     def __call__(self, items):
         self.ctx._check_generation(self._gen)
         self.ctx.counters["hlt_launches"] += 1
-        if self.plan.batch is None:
+        return self._execute(items)
+
+    def _execute(self, items):
+        """One execution, uncounted (the verifier's census runs this)."""
+        single = self.plan.batch is None
+        if self.plan.schedule.startswith("sharded"):
+            outs = self._run_sharded([items] if single else
+                                     self._batch_items(items))
+            return outs[0] if single else outs
+        if single:
             return self._run_single(items, self._diags[0])
-        items = list(items)
-        if len(items) != self.plan.batch:
-            raise ValueError(f"{len(items)} inputs for a batch of "
-                             f"{self.plan.batch}")
+        items = self._batch_items(items)
         if self.plan.schedule == "pallas":
             return self._run_batched_pallas(items)
         # reference schedules: a loop of single executions (oracle path)
         return [self._run_single(it, ds)
                 for it, ds in zip(items, self._diags, strict=True)]
+
+    def _batch_items(self, items) -> list:
+        items = list(items)
+        if len(items) != self.plan.batch:
+            raise ValueError(f"{len(items)} inputs for a batch of "
+                             f"{self.plan.batch}")
+        return items
+
+    def _slot_tensor(self, ct_slots, b_pad: int) -> torch.Tensor:
+        """The fused kernel's hoist-slot table for a call's aliasing,
+        padded to ``b_pad`` elements with slot 0: the compile-time table
+        when the aliasing is the hint's, else a fresh one."""
+        if tuple(ct_slots) == self._ct_pattern:
+            return self._slot_tables["ct"]
+        return torch.tensor(list(ct_slots) + [0] * (b_pad - len(ct_slots)),
+                            dtype=torch.int32, device=self.ctx.eng.device)
 
     def _run_batched_pallas(self, items) -> list:
         eng, plan = self.ctx.eng, self.plan
@@ -485,7 +638,7 @@ class CompiledHLT:
         c0e = torch.stack([h.c0_ext for h in hoisted])
         c1e = torch.stack([h.c1_ext for h in hoisted])
         view = eng.basis(eng.tools.digit_bases(plan.level)[0][2])
-        slots = torch.tensor(ct_slots, dtype=torch.int32, device=eng.device)
+        slots = self._slot_tensor(ct_slots, plan.batch)
         q_ell = eng.ctx.moduli_host[plan.level]
         B = plan.batch
         size = step2_chunk(eng.params, plan.level, B)
@@ -504,6 +657,110 @@ class CompiledHLT:
                                * self._diags[s + i].scale / q_ell)
                     for i in range(e - s)]
         return out
+
+    # -- the sharded schedules ---------------------------------------------
+
+    @property
+    def _datapath(self) -> str:
+        """The sharded body's datapath: the fused kernels, or plain torch
+        on ``sharded_xla``."""
+        return "xla" if self.plan.schedule == "sharded_xla" else "pallas"
+
+    def _rank_rows(self, c) -> torch.Tensor:
+        """(H, ℓ+1, N) main rows -> (H, rows_loc, N): this rank's block of
+        the rows zero-extended to the padded extended basis."""
+        tabs = self._sharded[0]
+        lo = self.ctx.model_rank * tabs.rows_loc
+        out = torch.zeros((c.shape[0], tabs.rows_loc, c.shape[-1]),
+                          dtype=torch.int32, device=c.device)
+        n = max(0, min(tabs.rows_loc, c.shape[1] - lo))
+        out[:, :n] = c[:, lo:lo + n]
+        return out
+
+    def _stack_local(self, items, lo: int, hi: int) -> tuple:
+        """c0, c1 (hi-lo, ℓ+1, N) of the batch elements lo..hi-1, zero
+        ciphertexts past the batch."""
+        its = items[lo:min(hi, len(items))]
+        c0 = torch.stack([it.c0 for it in its])
+        c1 = torch.stack([it.c1 for it in its])
+        if hi - lo > len(its):
+            z = c0.new_zeros((hi - lo - len(its),) + tuple(c0.shape[1:]))
+            c0, c1 = torch.cat([c0, z]), torch.cat([c1, z])
+        return c0, c1
+
+    def _sharded_args(self, items):
+        """The rank's argument dict of the sharded body and its hoist
+        layout.  Fused: dedupe the batch by identity and hoist whichever
+        is fewer a rank, the H unique ciphertexts ("dedup", global hoist
+        slots; the compile-time table when the aliasing matches the hint)
+        or the rank's B_loc elements ("element", local slots).  Padding
+        elements alias slot 0 (dedup) or are zero ciphertexts (element);
+        their outputs are dropped.  ``sharded_xla``: the rank's elements,
+        zero ciphertexts past the batch."""
+        plan, ctx = self.plan, self.ctx
+        for it in items:
+            if not isinstance(it, Ciphertext):
+                raise TypeError("the sharded schedules hoist inside the "
+                                "program: pass Ciphertexts, not hoisting "
+                                "products")
+            self._check_level(it)
+        diag_tab = self._slot_tables["diag"]
+        b_loc = diag_tab.shape[0] // ctx.n_ct    # one ct rank's share
+        lo, hi = ctx.ct_rank * b_loc, (ctx.ct_rank + 1) * b_loc
+        u, rk0, rk1, perms, is_id = self._operands
+        common = dict(u=u, rk0=rk0, rk1=rk1, perms=perms, is_id=is_id,
+                      slots=diag_tab[lo:hi])
+        if self._datapath == "xla":
+            c0, c1 = self._stack_local(items, lo, hi)
+            return dict(c0f=self._rank_rows(c0), c1f=self._rank_rows(c1),
+                        c1rep=c1, **common), "dedup"
+        uniq, ct_slots = _dedup_by_identity(items)
+        if len(uniq) > b_loc:
+            # a mostly distinct batch: replicating the uniques would make
+            # each ct rank hoist more than its share
+            c0, c1 = self._stack_local(items, lo, hi)
+            ct_tab = torch.arange(b_loc, dtype=torch.int32, device=c0.device)
+            return dict(c0u=self._rank_rows(c0), c1u=self._rank_rows(c1),
+                        c1rep=c1, ct_slots=ct_tab, **common), "element"
+        ct_tab = self._slot_tensor(ct_slots, diag_tab.shape[0])
+        c0u = torch.stack([it.c0 for it in uniq])
+        c1u = torch.stack([it.c1 for it in uniq])
+        return dict(c0u=self._rank_rows(c0u), c1u=self._rank_rows(c1u),
+                    c1rep=c1u, ct_slots=ct_tab[lo:hi], **common), "dedup"
+
+    def _sharded_body(self, items):
+        """The rank's body on a batch: its (B_loc, rows_loc, N) blocks of
+        both output polynomials (the collective census runs this)."""
+        tabs, rank_tabs = self._sharded
+        args, layout = self._sharded_args(items)
+        fn = self.ctx._sharded_pipeline(tabs, rank_tabs, self.plan.d_pad,
+                                        self.plan.nbeta, self._datapath,
+                                        self.plan.chunk, layout,
+                                        self.plan.datapath)
+        return fn(args)
+
+    def _gather(self, out0, out1) -> torch.Tensor:
+        """The ranks' output blocks -> (2, B_pad, M_pad, N) on every rank:
+        an all-gather over the limb ranks, then one over the ct ranks."""
+        ctx = self.ctx
+        out = torch.stack([out0, out1])                 # (2, B_loc, rows, N)
+        if ctx.n_model > 1:
+            out = torch.cat(collectives.all_gather(
+                out, ctx.mesh.group(ctx.limb_axes), ctx.n_model), dim=2)
+        if ctx.n_ct > 1:
+            out = torch.cat(collectives.all_gather(
+                out, ctx.mesh.group(ctx.ct_axes), ctx.n_ct), dim=1)
+        return out
+
+    def _run_sharded(self, items) -> list:
+        plan = self.plan
+        full = self._gather(*self._sharded_body(items))
+        lvl = plan.level
+        q_ell = self.ctx.eng.ctx.moduli_host[lvl]
+        return [Ciphertext(full[0, b, :lvl], full[1, b, :lvl], lvl - 1,
+                           it.scale * ds.scale / q_ell)
+                for b, (it, ds) in enumerate(zip(items, self._diags,
+                                                 strict=True))]
 
     def _run_single(self, item, ds: DiagSet) -> Ciphertext:
         """One HLT on the plan's schedule.  ``pallas``: hoist (unless given a
@@ -547,7 +804,7 @@ class _StageSums:
     """A program plan's per-execution totals over its two HLT stages
     ``step1`` and ``step2``: real rotations, key/diagonal operand bytes
     and hoisting-product bytes after and before the slot dedup, and
-    predicted cross-device bytes (0: no mesh)."""
+    predicted cross-device bytes (0 off the sharded schedules)."""
 
     rotations = _stage_sum("rotations")
     operand_bytes = _stage_sum("operand_bytes")
@@ -581,10 +838,12 @@ class HEMMProgram:
     Batched: Step 1 runs {σ(A), τ(B)} as one batched HLT and Step 2 all 2·l
     HLTs as one batched HLT off the 2 unique hoisting products (on
     ``"pallas"`` one slot-indexed launch each; a reference schedule loops
-    inside the batch).  Not batched: σ(A) and τ(B) are two single HLTs,
-    each output is hoisted once (``baseline``: not at all), and the 2·l
-    single HLTs of Step 2 reuse those two products.  Then l × (mult →
-    rescale) and add."""
+    inside the batch; the sharded schedules hoist inside their program,
+    so Step 2 takes Step 1's ciphertexts).  Not batched: σ(A) and τ(B)
+    are two single HLTs, each output is hoisted once (``baseline`` and
+    the sharded schedules: not here), and the 2·l single HLTs of Step 2
+    reuse those two products.  Then l × (mult → rescale) and add, on
+    every rank of a mesh."""
 
     def __init__(self, ctx: HEContext, mm_plan, plan: HEMMPlan, step1, step2):
         self.ctx = ctx
@@ -610,19 +869,23 @@ class HEMMProgram:
             raise ValueError(f"input levels {ctA.level}, {ctB.level}; "
                              f"compiled for {self.plan.level}")
         self._mark("start")
+        sharded = self.plan.schedule.startswith("sharded")
         if self.plan.batched:
             ctA0, ctB0 = self._step1([ctA, ctB])
             self._mark("step1")
-            hstA, hstB = hoist_batched(eng, [ctA0, ctB0],
-                                       datapath=self.plan.step2.datapath)
+            if sharded:             # the program hoists on each rank's rows
+                inA, inB = ctA0, ctB0
+            else:
+                inA, inB = hoist_batched(eng, [ctA0, ctB0],
+                                         datapath=self.plan.step2.datapath)
             self._mark("step2_hoist")
-            outs = self._step2([hstA] * p.l + [hstB] * p.l)
+            outs = self._step2([inA] * p.l + [inB] * p.l)
         else:
             s1a, s1b = self._step1
             ctA0, ctB0 = s1a(ctA), s1b(ctB)
             self._mark("step1")
-            if self.plan.schedule == "baseline":
-                inA, inB = ctA0, ctB0       # no hoisting product
+            if self.plan.schedule == "baseline" or sharded:
+                inA, inB = ctA0, ctB0       # no hoisting product here
             else:       # hoist once, reuse across all l Step-2 HLTs per input
                 dp = self.plan.step2.datapath
                 inA, inB = hoist(eng, ctA0, dp), hoist(eng, ctB0, dp)
@@ -645,7 +908,7 @@ def compile_hemm(ctx: HEContext, plan, *, schedule: Optional[str] = None,
     """Compile Algorithm 2 for a HeMMPlan into a reusable HEMMProgram
     (memoized on the context: same plan -> same program).
     ``schedule=None`` / ``rotation_chunk=None`` defer to the cost model;
-    ``batched=None`` batches whenever the fused schedule is chosen.
+    ``batched=None`` batches on the fused and the sharded schedules.
     ``baseline`` is never batched: it has no hoisting product to share."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
@@ -655,11 +918,11 @@ def compile_hemm(ctx: HEContext, plan, *, schedule: Optional[str] = None,
         # Step 2 (2·l HLTs off 2 unique inputs) dominates
         schedule = select_schedule(
             eng.params, nbeta=len(eng.tools.digit_bases(level)),
-            smem_bytes=ctx.smem_bytes, d=plan.ds_sigma.d, ctb=2 * plan.l,
-            n_uniq=2)
+            smem_bytes=ctx.smem_bytes, n_model=ctx.n_model, n_ct=ctx.n_ct,
+            d=plan.ds_sigma.d, ctb=2 * plan.l, n_uniq=2)
     _check_schedule(schedule, rotation_chunk)
     if batched is None:
-        batched = schedule == "pallas"
+        batched = schedule in ("pallas", "sharded", "sharded_xla")
     batched = bool(batched) and schedule != "baseline"
     memo_key = ("hemm", _StrongKey(plan), schedule, level, rotation_chunk,
                 batched, ctx.verify)
@@ -776,8 +1039,9 @@ class BlockMMProgram:
         first: dict = {}
         outs = [outs[first.setdefault(s, b)] for b, s in enumerate(slots1)]
         self._mark("step1")
-        if self.plan.schedule == "baseline":
-            hst = outs                          # no hoisting product
+        if self.plan.schedule == "baseline" or \
+                self.plan.schedule.startswith("sharded"):
+            hst = outs      # no hoisting product, or hoisted in the program
         else:
             uniq, uslots = _dedup_by_identity(outs)
             hu = hoist_batched(eng, uniq, datapath=self.plan.step2.datapath)
@@ -836,8 +1100,9 @@ def compile_blockmm(ctx: HEContext, plan, grid, *,
     if schedule is None:
         schedule = select_schedule(
             eng.params, nbeta=len(eng.tools.digit_bases(level)),
-            smem_bytes=ctx.smem_bytes, d=plan.ds_sigma.d,
-            ctb=plan.l * (nA + nB), n_uniq=len(set(slots1)))
+            smem_bytes=ctx.smem_bytes, n_model=ctx.n_model, n_ct=ctx.n_ct,
+            d=plan.ds_sigma.d, ctb=plan.l * (nA + nB),
+            n_uniq=len(set(slots1)))
     _check_schedule(schedule, rotation_chunk)
     memo_key = ("blockmm", _StrongKey(plan), grid, schedule, level,
                 rotation_chunk, a_slots, b_slots, ctx.verify)
@@ -926,7 +1191,9 @@ class HEMMChainPlan:
 
     @property
     def collective_bytes(self) -> int:
-        """Predicted cross-device bytes an execution: 0, no mesh."""
+        """Predicted cross-device bytes an execution: 2 merged-ModDown
+        all-reduces a hop under the sharded schedule, nothing between hops
+        (the re-pack is the identity, mult/rescale/add are limb-local)."""
         return sum(h.collective_bytes for h in self.hops)
 
 
@@ -1024,8 +1291,9 @@ def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
     ``analysis.max_chain_depth`` names the deepest chain that fits.
 
     ``schedule`` forces one schedule on every hop; without it,
-    ``costmodel.select_chain_schedules`` picks them (on one device: each
-    hop's ``select_schedule`` pick).  Memoized on the context."""
+    ``costmodel.select_chain_schedules`` picks them jointly (on one
+    device: each hop's ``select_schedule`` pick; with a mesh it prices a
+    change of residency between hops).  Memoized on the context."""
     if ctx.keys is None:
         raise RuntimeError("HEContext has no keys; call ctx.keygen()")
     eng = ctx.eng
@@ -1052,7 +1320,7 @@ def compile_hemm_chain(ctx: HEContext, chain, *, level: Optional[int] = None,
                   nbeta=len(eng.tools.digit_bases(level - 3 * h)),
                   level=level - 3 * h)
              for h, hp in enumerate(chain.hops)],
-            smem_bytes=ctx.smem_bytes)
+            smem_bytes=ctx.smem_bytes, n_model=ctx.n_model, n_ct=ctx.n_ct)
     for s in scheds:
         _check_schedule(s, rotation_chunk)
 

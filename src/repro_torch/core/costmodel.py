@@ -28,9 +28,9 @@ wasted work.  ``compile_hlt`` therefore resolves ``rotation_chunk=None``
 to chunk = d_max, so d_pad = d_max.
 
 The mesh terms (``sharded_collective_bytes``, the sharded side of
-``select_schedule``, ``select_chain_schedules``) are ported as arithmetic.
-The port's ``HEContext`` has no mesh yet (no multi-device schedule), so
-every compile sees n_model = n_ct = 1 and never runs ``"sharded"``.
+``select_schedule``, ``select_chain_schedules``) price the multi-device
+schedule (``core/hlt_dist.py``): a compile on ``HEContext(mesh=)`` sees
+the mesh's n_model and n_ct, and the pick may be ``"sharded"``.
 """
 from __future__ import annotations
 
@@ -195,8 +195,7 @@ def select_schedule(params: "HEParams", nbeta: int | None = None,
     with ``rot = hlt_operand_bytes(d)``, ``hoist = hlt_hoist_bytes()``, B
     the batch, B_pad it padded to the ct axis, U the unique inputs and
     ``coll = sharded_collective_bytes``; ``dedup_hoist=False`` charges the
-    sharded side one hoist per element.  The port's contexts have no mesh,
-    so this branch is arithmetic only."""
+    sharded side one hoist per element."""
     single = ("pallas" if fused_kernels_accept(params, nbeta, smem_bytes)
               else "mo")
     n_model, n_ct = max(1, n_model), max(1, n_ct)

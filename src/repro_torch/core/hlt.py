@@ -2,8 +2,8 @@
 batched hoists, the reference schedules and the Montgomery operand builder
 of the fused schedule — counterpart of ``repro/core/hlt.py``.
 
-Four schedules, the same math (``mo``, ``hoisted`` and ``pallas`` give
-identical residues):
+Six schedules, the same math (``mo``, ``hoisted``, ``pallas`` and the
+sharded pair give identical residues):
 
 * ``baseline`` — Algorithm 1: every rotation is a full ``rotate`` (a
   KeySwitch each), then ``cmult`` by its diagonal, one rescale at the end.
@@ -15,6 +15,9 @@ identical residues):
   rotations per step (it bounds the gathered temporaries).
 * ``pallas`` — the fused Automorph→KeyIP→DiagIP kernels
   (``kernels/fused_hlt.py``) on Montgomery operands (``core/compile.py``).
+* ``sharded`` / ``sharded_xla`` — the same over a mesh of ranks, limbs
+  over ``model`` and ciphertexts over ``data`` (``core/hlt_dist.py``):
+  the fused kernels on each rank's rows, or plain torch.
 
 ``hoist`` / ``hoist_batched`` take a ``datapath``: ``"pallas"`` runs the
 fused hoist kernels, ``"xla"`` the per-digit chain iNTT → ModUp BaseConv →
@@ -133,15 +136,18 @@ def _hoist_digits(eng: CkksEngine, c1, level: int, datapath: str):
         return ops.hoist_fused(c1, eng.fused_hoist_tables(level))
     bases = eng.tools.digit_bases(level)
     full = bases[0][2]
-    pos = {g: i for i, g in enumerate(full)}
     digs = torch.zeros((len(bases), len(full), eng.params.N),
                        dtype=torch.int32, device=eng.device)
     for j, (own, gen, _) in enumerate(bases):
-        dig_eval = c1[own[0]: own[-1] + 1]
+        # own is the main rows s..e-1 of the extended basis, gen the rest
+        # in order: slices, so nothing is copied from the host
+        s, e = own[0], own[-1] + 1
+        dig_eval = c1[s:e]
         coeff = eng._intt(dig_eval, eng.basis(own))
-        ext = eng.tools.mod_up(coeff, own, gen)
-        digs[j, [pos[i] for i in own]] = dig_eval
-        digs[j, [pos[i] for i in gen]] = eng._ntt(ext, eng.basis(gen))
+        ext_eval = eng._ntt(eng.tools.mod_up(coeff, own, gen), eng.basis(gen))
+        digs[j, s:e] = dig_eval
+        digs[j, :s] = ext_eval[:s]
+        digs[j, e:] = ext_eval[s:]
     return digs
 
 
@@ -185,11 +191,16 @@ def hoist_batched(eng: CkksEngine, cts: Sequence[Ciphertext], *,
 def _scale_raise(eng: CkksEngine, x, ell: int):
     """x (..., ℓ+1, N) over Q_ℓ -> P·x over Q_ℓ ∪ P (zeros on special limbs)."""
     p = eng.params
-    Pprod = 1
-    for i in range(p.num_main, p.num_total):
-        Pprod *= eng.ctx.moduli_host[i]
-    pres = torch.tensor([Pprod % eng.ctx.moduli_host[i] for i in range(ell + 1)],
-                        dtype=torch.int64, device=eng.device)[:, None]
+    key = ("p_raise", ell)                  # built once a level: a call
+    pres = eng._fused_tabs.get(key)         # copies nothing to the device
+    if pres is None:
+        Pprod = 1
+        for i in range(p.num_main, p.num_total):
+            Pprod *= eng.ctx.moduli_host[i]
+        pres = torch.tensor([Pprod % eng.ctx.moduli_host[i]
+                             for i in range(ell + 1)],
+                            dtype=torch.int64, device=eng.device)[:, None]
+        eng._fused_tabs[key] = pres
     top = mm.mulmod(x, pres, eng.main_basis(ell).moduli)
     zeros = torch.zeros(x.shape[:-2] + (p.k, p.N), dtype=torch.int32,
                         device=eng.device)
@@ -209,7 +220,7 @@ def _perm_table(eng: CkksEngine, zs) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-SCHEDULES = ("baseline", "hoisted", "mo", "pallas")
+SCHEDULES = ("baseline", "hoisted", "mo", "pallas", "sharded", "sharded_xla")
 
 _DEPRECATION = ("%s is deprecated: build an HEContext and use "
                 "repro_torch.core.compile.compile_hlt / compile_hemm (the "
@@ -395,18 +406,25 @@ def _hlt_mo(eng: CkksEngine, hst: Hoisted, diags: DiagSet, keys: Keys,
 # ---------------------------------------------------------------------------
 
 
-def operand_shapes(eng: CkksEngine, level: int, nbeta: int, d_pad: int):
-    """Shapes of (u_m, rk0_m, rk1_m, perms, is_id) for one DiagSet."""
+def operand_shapes(eng: CkksEngine, level: int, nbeta: int, d_pad: int,
+                   rows: Optional[int] = None):
+    """Shapes of (u_m, rk0_m, rk1_m, perms, is_id) for one DiagSet, over
+    the extended basis or ``rows`` rows of it."""
     M, N = len(eng.tools.digit_bases(level)[0][2]), eng.params.N
+    M = M if rows is None else rows
     return ((d_pad, M, N), (d_pad, nbeta, M, N), (d_pad, nbeta, M, N),
             (d_pad, N), (d_pad, 1))
 
 
 def _build_pallas_operands(eng: CkksEngine, diags: DiagSet, keys: Keys,
-                           level: int, nbeta: int, d_pad: int, out=None):
+                           level: int, nbeta: int, d_pad: int, out=None,
+                           limbs: Optional[tuple] = None):
     """Montgomery-domain kernel operands for one DiagSet, padded to d_pad
     rotations: (u_m, rk0_m, rk1_m, perms, is_id), all int32; written into
     ``out`` (zero-filled tensors of ``operand_shapes``) when given.
+    ``limbs=(lo, hi)``: only the rows lo..hi-1 of the extended basis (a
+    rank's block of the sharded schedule; rows past the basis are padding
+    and stay zero).
 
     Padding entries are identity rotations (perm = arange) with zero
     diagonal and is_id = 1, so they bypass KeyIP and contribute exactly
@@ -415,21 +433,28 @@ def _build_pallas_operands(eng: CkksEngine, diags: DiagSet, keys: Keys,
     stay one rotation's size."""
     p = eng.params
     full = eng.tools.digit_bases(level)[0][2]
-    view = eng.basis(full)
-    q32, qneg, r2 = view.moduli_u32, view.qneg_inv, view.r2
-    rows = torch.as_tensor(full, device=eng.device)
+    lo, hi = (0, len(full)) if limbs is None else limbs
+    sel = full[lo:hi]                   # the block's rows of the basis
+    n = len(sel)
     N, dev = p.N, eng.device
     if out is None:
         out = tuple(torch.zeros(s, dtype=torch.int32, device=dev)
-                    for s in operand_shapes(eng, level, nbeta, d_pad))
+                    for s in operand_shapes(eng, level, nbeta, d_pad,
+                                            rows=hi - lo))
     u_m, rk0_m, rk1_m, perms_t, is_id_t = out
-    for t, z in enumerate(diags.zs):
-        u_m[t] = mm.to_mont(diags.pt[t][rows], q32, qneg, r2)
-        if z == 0:
-            continue
-        key = keys.galois[automorph.galois_elt_rot(z, N)]
-        rk0_m[t] = mm.to_mont(key.k0[:nbeta][:, rows], q32, qneg, r2)
-        rk1_m[t] = mm.to_mont(key.k1[:nbeta][:, rows], q32, qneg, r2)
+    if n:
+        view = eng.basis(sel)
+        q32, qneg, r2 = view.moduli_u32, view.qneg_inv, view.r2
+        rows = torch.as_tensor(sel, device=dev)
+        for t, z in enumerate(diags.zs):
+            u_m[t, :n] = mm.to_mont(diags.pt[t][rows], q32, qneg, r2)
+            if z == 0:
+                continue
+            key = keys.galois[automorph.galois_elt_rot(z, N)]
+            rk0_m[t, :, :n] = mm.to_mont(key.k0[:nbeta][:, rows], q32, qneg,
+                                         r2)
+            rk1_m[t, :, :n] = mm.to_mont(key.k1[:nbeta][:, rows], q32, qneg,
+                                         r2)
     perms = np.tile(np.arange(N, dtype=np.int32), (d_pad, 1))
     perms[: diags.d] = _perm_table(eng, diags.zs)
     is_id = np.ones((d_pad, 1), np.int32)

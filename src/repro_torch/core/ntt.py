@@ -11,6 +11,13 @@ moduli and constants ``(M, 1)``.  The CUDA kernels run the Montgomery
 butterflies of ``ntt_mont_raw`` / ``intt_mont_raw`` split over a
 thread-block cluster (``split_fwd_row`` / ``split_inv_row`` in
 ``csrc/common.cuh``; the standalone transforms are ``csrc/ntt.cu``).
+
+``ntt`` / ``intt`` / ``ntt_mont`` / ``intt_mont`` are the named plain
+transforms that code paths call (the engine's ``"xla"`` datapath, the
+sharded schedule's plain-torch stages); each call adds one to ``CALLS``,
+which the verifier's census reads (rule JX004: a program whose stages
+are on the kernels calls none of them).  The kernels' plain versions
+call the ``*_raw`` recursions and are not counted.
 """
 from __future__ import annotations
 
@@ -99,3 +106,27 @@ def intt_mont_raw(x, psi_inv_brv_mont, n_inv_mont, q32, qneg_inv):
         t *= 2
         h //= 2
     return mm.montmul(x, n_inv_mont, q32, qneg_inv)
+
+
+#: calls of the named transforms, by name (module docstring)
+CALLS = {"ntt": 0, "intt": 0, "ntt_mont": 0, "intt_mont": 0}
+
+
+def ntt(x, psi_brv, q):
+    CALLS["ntt"] += 1
+    return ntt_raw(x, psi_brv, q)
+
+
+def intt(x, psi_inv_brv, n_inv, q):
+    CALLS["intt"] += 1
+    return intt_raw(x, psi_inv_brv, n_inv, q)
+
+
+def ntt_mont(x, psi_brv_mont, q32, qneg_inv):
+    CALLS["ntt_mont"] += 1
+    return ntt_mont_raw(x, psi_brv_mont, q32, qneg_inv)
+
+
+def intt_mont(x, psi_inv_brv_mont, n_inv_mont, q32, qneg_inv):
+    CALLS["intt_mont"] += 1
+    return intt_mont_raw(x, psi_inv_brv_mont, n_inv_mont, q32, qneg_inv)

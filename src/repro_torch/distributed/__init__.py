@@ -1,2 +1,4 @@
-"""Fault tolerance of the port (``distributed/fault.py``).  The
-multi-device schedule (the reference's ``sharding.py``) is not ported."""
+"""Multi-device support of the port: the sharding rules
+(``distributed/sharding.py``), the HE schedule's collectives
+(``distributed/collectives.py``) and fault tolerance
+(``distributed/fault.py``)."""

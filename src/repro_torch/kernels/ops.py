@@ -7,8 +7,14 @@ points; ``kernels/ref.py`` holds the plain oracles) plus the pipelines of
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
 plain PyTorch version.  There is no other path: a CUDA launch that fails
 raises, and nothing falls back to the plain version.
+
+``CALLS`` counts the calls of each entry point on any device (the
+kernels' ``LAUNCHES`` count only CUDA launches): the verifier's census
+reads it (rule JX002, ``analysis/census.py``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch.nn.functional as F
 
@@ -21,17 +27,33 @@ from repro_torch.kernels import ntt as _ntt
 _COUNTERS = (_fh.LAUNCHES, _bc.LAUNCHES, _ntt.LAUNCHES, _mm.LAUNCHES,
              _bcv.LAUNCHES)
 
+#: calls of each kernel entry point, on any device
+CALLS: dict = {}
 
+
+def _entry(fn):
+    CALLS[fn.__name__] = 0
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        CALLS[fn.__name__] += 1
+        return fn(*args, **kwargs)
+    return call
+
+
+@_entry
 def modmul(x, y, q32, qneg):
     fn = _mm.modmul_cuda if x.is_cuda else _mm.modmul_plain
     return fn(x, y, q32, qneg)
 
 
+@_entry
 def modadd(x, y, q32):
     fn = _mm.modadd_cuda if x.is_cuda else _mm.modadd_plain
     return fn(x, y, q32)
 
 
+@_entry
 def baseconv(x, hat_inv_m, q_own, qneg_own, W_m, D_mod_m, inv_d, q_gen,
              qneg_gen):
     fn = _bcv.baseconv_cuda if x.is_cuda else _bcv.baseconv_plain
@@ -39,37 +61,44 @@ def baseconv(x, hat_inv_m, q_own, qneg_own, W_m, D_mod_m, inv_d, q_gen,
               qneg_gen)
 
 
+@_entry
 def ntt(x, psi_m, q32, qneg):
     fn = _ntt.ntt_cuda if x.is_cuda else _ntt.ntt_plain
     return fn(x, psi_m, q32, qneg)
 
 
+@_entry
 def intt(x, psii_m, ninv_m, q32, qneg):
     fn = _ntt.intt_cuda if x.is_cuda else _ntt.intt_plain
     return fn(x, psii_m, ninv_m, q32, qneg)
 
 
+@_entry
 def intt_scale(x, psii_m, ninv_m, scale_m, q32, qneg):
     if x.is_cuda:
         return _bc.intt_scale_cuda(x, psii_m, ninv_m, scale_m, q32, qneg)
     return _bc.intt_scale_plain(x, psii_m, ninv_m, scale_m, q32, qneg)
 
 
+@_entry
 def baseconv_ntt(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask):
     fn = _bc.baseconv_ntt_cuda if y.is_cuda else _bc.baseconv_ntt_plain
     return fn(y, w, d, inv_d, psi_m, q32, qneg, passthrough, mask)
 
 
+@_entry
 def hoist_db(c1s, *tables, nbeta: int, alpha: int):
     fn = _bc.hoist_db_cuda if c1s.is_cuda else _bc.hoist_db_plain
     return fn(c1s, *tables, nbeta=nbeta, alpha=alpha)
 
 
+@_entry
 def moddown_finish(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg):
     fn = _bc.moddown_finish_cuda if x.is_cuda else _bc.moddown_finish_plain
     return fn(x, y_drop, w, d, inv_d, psi_m, p_inv_m, q32, qneg)
 
 
+@_entry
 def fused_hlt_indexed(digits, c0e, c1e, u, rk0, rk1, perms, is_id, ct_slots,
                       diag_slots, q32, qneg):
     fn = (_fh.fused_hlt_indexed_cuda if digits.is_cuda
@@ -78,11 +107,13 @@ def fused_hlt_indexed(digits, c0e, c1e, u, rk0, rk1, perms, is_id, ct_slots,
               diag_slots, q32, qneg)
 
 
+@_entry
 def fused_hlt(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
     fn = _fh.fused_hlt_cuda if digits.is_cuda else _fh.fused_hlt_plain
     return fn(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg)
 
 
+@_entry
 def fused_hlt_batched(digits, c0e, c1e, u, rk0, rk1, perms, is_id, q32, qneg):
     fn = (_fh.fused_hlt_batched_cuda if digits.is_cuda
           else _fh.fused_hlt_batched_plain)

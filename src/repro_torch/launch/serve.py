@@ -8,7 +8,8 @@ Weights are random, drawn from a generator seeded with 0 on the device
 (the reference draws ``init_params(cfg, PRNGKey(0))``); prompts are 8
 tokens from ``numpy.random.default_rng(0)``.  Runs on CUDA unless
 ``--device`` says otherwise.  One device only: ``--tp`` other than 1 (the
-reference's tensor-parallel mesh) waits for the multi-device schedule.
+reference's tensor-parallel mesh) waits for the LM half of the
+multi-device schedule.
 """
 from __future__ import annotations
 
@@ -36,8 +37,9 @@ def main(argv=None) -> ContinuousBatcher:
     args = ap.parse_args(argv)
     if args.tp != 1:
         raise NotImplementedError(
-            "--tp: the tensor-parallel mesh (the multi-device schedule) is "
-            "not ported yet")
+            "--tp: the LM's tensor-parallel mesh (the LM half of the "
+            "multi-device schedule) is not ported yet; the HE schedule runs "
+            "on a mesh through HEContext(mesh=)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)

@@ -10,7 +10,7 @@ batches are ``synth_batch``'s.  A checkpoint in ``--ckpt-dir`` is resumed
 from (the step-keyed data stream resumes with it).  Runs on CUDA unless
 ``--device`` says otherwise.  One device only: ``--dp`` / ``--tp`` other
 than 1, ``--production-mesh`` and ``--multi-pod`` (the reference's mesh)
-wait for the multi-device schedule.
+wait for the LM half of the multi-device schedule.
 """
 from __future__ import annotations
 
@@ -68,8 +68,9 @@ def main(argv=None) -> TrainRun:
     args = ap.parse_args(argv)
     if (args.dp, args.tp) != (1, 1) or args.production_mesh or args.multi_pod:
         raise NotImplementedError(
-            "--dp / --tp / --production-mesh / --multi-pod: the device mesh "
-            "(the multi-device schedule) is not ported yet")
+            "--dp / --tp / --production-mesh / --multi-pod: the LM's device "
+            "mesh (the LM half of the multi-device schedule) is not ported "
+            "yet")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)

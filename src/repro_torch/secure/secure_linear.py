@@ -12,9 +12,12 @@ counterpart of ``repro/secure/secure_linear.py``.
   between the hops.
 
 The engine owns an ``HEContext`` (``core/compile.py``), on CUDA unless
-``device="cpu"`` is asked for.  The cost model picks the schedule; the
-``schedule=`` knob is a deprecated override, as in the reference.  Not
-ported yet, and refused: ``mesh=`` (the multi-device schedule).
+``device="cpu"`` is asked for (or the mesh's device, with ``mesh=``).
+The cost model picks the schedule; the ``schedule=`` knob is a
+deprecated override, as in the reference.  ``mesh=``
+(``launch/mesh.py``) makes ``schedule="sharded"`` multi-device: tiles
+over the ``data`` ranks, limbs over the ``model`` ranks, the 2-D
+parallel block MM; the cost model picks it where it is worth it.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.core.costmodel import select_schedule
 from repro_torch.core.hemm import (decrypt_matrix, encrypt_matrix, plan_hemm,
                                    plan_hemm_chain)
 from repro_torch.core.params import HEParams
+from repro_torch.launch.mesh import check_mesh
 
 
 @dataclasses.dataclass
@@ -41,17 +45,18 @@ class SecureMatmulEngine:
     schedule: Optional[str] = None   # DEPRECATED: None = the cost model's
     rotation_chunk: Optional[int] = None
     batched: Optional[bool] = None   # default: batched iff fused schedule
-    mesh: Optional[object] = None    # not ported: raises
+    mesh: Optional[object] = None    # a launch.mesh.Mesh: "sharded" runs
+    #   tiles over the data ranks and limbs over the model ranks
     ctx: Optional[HEContext] = None  # an externally owned context
     device: Optional[object] = None  # of the engine built when ctx is None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "SecureMatmulEngine(mesh=...): the multi-device schedule is "
-                "not ported yet")
         if self.ctx is None:
-            self.ctx = HEContext(CkksEngine(self.params, device=self.device))
+            device = self.device
+            if check_mesh(self.mesh) is not None and device is None:
+                device = self.mesh.device
+            self.ctx = HEContext(CkksEngine(self.params, device=device),
+                                 mesh=self.mesh)
         elif self.ctx.eng.params != self.params:
             raise ValueError("the injected HEContext was built for other "
                              "HE parameters")
@@ -62,7 +67,8 @@ class SecureMatmulEngine:
         self._plan = plan_hemm(self.eng, self.tile, self.tile, self.tile)
         if self.schedule is None:
             self.schedule = select_schedule(
-                self.params, d=self._plan.ds_sigma.d, ctb=2 * self.tile)
+                self.params, n_model=self.ctx.n_model, n_ct=self.ctx.n_ct,
+                d=self._plan.ds_sigma.d, ctb=2 * self.tile)
         else:
             warnings.warn(
                 "SecureMatmulEngine(schedule=...) is deprecated: leave it "
@@ -70,7 +76,8 @@ class SecureMatmulEngine:
                 "programs explicitly via repro_torch.core.compile.",
                 DeprecationWarning, stacklevel=3)
         if self.batched is None:
-            self.batched = self.schedule == "pallas"
+            self.batched = (self.schedule == "pallas"
+                            or self.schedule.startswith("sharded"))
 
     def keygen(self, rng: np.random.Generator) -> Keys:
         return self.ctx.keygen(rng, rot_steps=self._plan.rot_steps)

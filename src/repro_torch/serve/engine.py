@@ -12,8 +12,11 @@ sends each decode step's secure-layer calls through the tier as one flush.
 Everything runs on CUDA unless ``device="cpu"`` is asked for (the batcher
 runs where its parameters lie).
 
-Not ported yet: the multi-device schedule — ``he_mesh`` (refused unless
-``None``), ``make_sharded_serve_steps`` and ``cache_shardings``.
+``ServeConfig(he_mesh=)`` (a ``launch/mesh.py`` mesh) goes to the secure
+tier's contexts: its programs may run ``"sharded"`` over the mesh's
+ranks.  Not ported yet: the LM's tensor parallelism,
+``make_sharded_serve_steps`` and ``cache_shardings`` (the LM half of the
+multi-device schedule).
 """
 from __future__ import annotations
 
@@ -38,8 +41,9 @@ class ServeConfig:
     temperature: float = 0.0       # 0 = greedy; >0 = seeded categorical
     seed: int = 0                  # sampling rng seed (determinism tests)
     # secure (HE) layer serving.  he_schedule=None defers to the cost model
-    # (select_schedule); setting it is the DEPRECATED override.  he_mesh is
-    # the reference's multi-device schedule: not ported, must stay None.
+    # (select_schedule); setting it is the DEPRECATED override.  he_mesh (a
+    # launch.mesh.Mesh with pod/data/model axes) makes schedule="sharded"
+    # available to the secure tier; the cost model picks it when worthwhile.
     he_schedule: Optional[str] = None
     he_tile: int = 8
     he_rotation_chunk: Optional[int] = None   # None = the cost model's pick
@@ -48,13 +52,6 @@ class ServeConfig:
     he_max_sessions: int = 4       # tenant arenas kept live (LRU eviction)
     he_max_programs: int = 32      # HEProgramCache capacity
     he_batch_requests: bool = True  # False = per-request launches (ablation)
-
-
-def _check_mesh(scfg: ServeConfig) -> None:
-    if scfg.he_mesh is not None:
-        raise NotImplementedError(
-            "ServeConfig(he_mesh=...): the multi-device schedule is not "
-            "ported yet")
 
 
 def _default_params():
@@ -71,11 +68,11 @@ def build_secure_linears(cfg: ModelConfig, scfg: ServeConfig, weights: dict,
     to HE."""
     if not cfg.secure_layers:
         return {}
-    _check_mesh(scfg)
     engine = SecureMatmulEngine(
         he_params if he_params is not None else _default_params(),
         tile=scfg.he_tile, schedule=scfg.he_schedule,
-        rotation_chunk=scfg.he_rotation_chunk, device=device)
+        rotation_chunk=scfg.he_rotation_chunk, mesh=scfg.he_mesh,
+        device=device)
     return {i: SecureLinear(engine, np.asarray(W), rng)
             for i, W in weights.items() if i in cfg.secure_layers}
 
@@ -106,12 +103,11 @@ def build_secure_serving(cfg: ModelConfig, scfg: ServeConfig, weights: dict,
     layer is flagged secure."""
     if not cfg.secure_layers:
         return None
-    _check_mesh(scfg)
     pool = SessionPool(
         he_params if he_params is not None else _default_params(),
         tile=scfg.he_tile, max_live=scfg.he_max_sessions,
         schedule=scfg.he_schedule, rotation_chunk=scfg.he_rotation_chunk,
-        verify=verify, device=device)
+        mesh=scfg.he_mesh, verify=verify, device=device)
     pool.attach_weights({i: np.asarray(W) for i, W in weights.items()
                          if i in cfg.secure_layers})
     cache = HEProgramCache(capacity=scfg.he_max_programs)

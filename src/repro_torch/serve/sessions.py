@@ -27,8 +27,10 @@ contexts, and a compiled-program cache — counterpart of
   object identity (core/compile.py), so one cached program serves every
   shared-prompt pattern of the same shape.
 
-The pool runs on CUDA unless ``device="cpu"`` is asked for.  Not ported
-yet, and refused: ``mesh=`` (the multi-device schedule).  The per-step batching lives in ``serve/he_batcher.py``.
+The pool runs on CUDA unless ``device="cpu"`` is asked for (with
+``mesh=``, on the mesh's device): a mesh (``launch/mesh.py``) goes to
+every tenant's ``HEContext``, so ``"sharded"`` programs run over its
+ranks.  The per-step batching lives in ``serve/he_batcher.py``.
 """
 from __future__ import annotations
 
@@ -42,12 +44,9 @@ from repro_torch.core.compile import (HEContext, compile_blockmm,
                                       compile_hemm_chain)
 from repro_torch.core.hemm import decrypt_matrix
 from repro_torch.core.params import HEParams
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.secure import SecureLinear, SecureMatmulEngine
 
-#: the mesh factorization (limb ways, ciphertext-batch ways) in a cache
-#: key: the reference keys on ``ctx.n_model, ctx.n_ct``; the port runs on
-#: one device, so both are 1
-_MESH = (1, 1)
 
 
 @dataclasses.dataclass
@@ -113,16 +112,15 @@ class SessionPool:
                  max_live: int = 4, schedule: Optional[str] = None,
                  rotation_chunk: Optional[int] = None, mesh=None,
                  verify: str = "warn", device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SessionPool(mesh=...): the multi-device schedule is not "
-                "ported yet")
+        if check_mesh(mesh) is not None and device is None:
+            device = mesh.device
         self.params = params
         self.tile = tile
         self.max_live = max(1, max_live)
         self.schedule = schedule
         self.rotation_chunk = rotation_chunk
         self.verify = verify            # static-verifier mode per session ctx
+        self.mesh = mesh
         # shared: key-independent precompute
         self.eng = CkksEngine(params, device=device, datapath="pallas")
         self._sessions: dict = {}       # tenant -> TenantSession (LRU order)
@@ -146,11 +144,11 @@ class SessionPool:
         return sess
 
     def _create(self, tenant: str, rng: np.random.Generator) -> TenantSession:
-        ctx = HEContext(self.eng, verify=self.verify)
+        ctx = HEContext(self.eng, verify=self.verify, mesh=self.mesh)
         sess = TenantSession(tenant, ctx)
         sess.engine = SecureMatmulEngine(
             self.params, tile=self.tile, schedule=self.schedule,
-            rotation_chunk=self.rotation_chunk, ctx=ctx)
+            rotation_chunk=self.rotation_chunk, mesh=self.mesh, ctx=ctx)
         sess.engine.keygen(rng)
         sess.stats.keygens += 1
         for i, W in self._weights.items():
@@ -190,9 +188,8 @@ class HEProgramCache:
     shape, not aliasing.
 
     Key: (tenant, tile m/l/n, grid, level, schedule, rotation_chunk, mesh
-    factorization, verify mode) — the reference's fields.  The mesh
-    factorization is the constant ``_MESH`` = (1, 1): the port has no
-    mesh.  Toggling ``ctx.verify`` must never return a program compiled
+    factorization ``ctx.n_model, ctx.n_ct``, verify mode) — the
+    reference's fields.  Toggling ``ctx.verify`` must never return a program compiled
     under different verification, so the mode is part of the key.  The
     per-step aliasing pattern (which requests share a prompt) is NOT in
     the key: BlockMMProgram re-derives aliasing from object identity at
@@ -236,7 +233,7 @@ class HEProgramCache:
         """The serving entry point to compile_blockmm (counted)."""
         ctx = sess.ctx
         key = (sess.tenant, plan.m, plan.l, plan.n, tuple(grid), level,
-               schedule, rotation_chunk, *_MESH, ctx.verify)
+               schedule, rotation_chunk, ctx.n_model, ctx.n_ct, ctx.verify)
         return self._lookup(key, ctx, lambda: compile_blockmm(
             ctx, plan, grid, level=level, schedule=schedule,
             rotation_chunk=rotation_chunk, a_slots=a_slots, b_slots=b_slots))
@@ -253,7 +250,7 @@ class HEProgramCache:
         field."""
         ctx = sess.ctx
         key = (sess.tenant, "chain", chain.dims, chain.repack, level,
-               schedule, rotation_chunk, *_MESH, ctx.verify)
+               schedule, rotation_chunk, ctx.n_model, ctx.n_ct, ctx.verify)
         return self._lookup(key, ctx, lambda: compile_hemm_chain(
             ctx, chain, level=level, schedule=schedule,
             rotation_chunk=rotation_chunk))

@@ -158,7 +158,7 @@ def test_secure_linear_matches_reference(s):
 
 def test_mesh_and_chain_raise_and_schedule_knob_warns(s):
     p = FAME_VERIFY_SETS[NAME]
-    with pytest.raises(NotImplementedError, match="multi-device schedule"):
+    with pytest.raises(TypeError, match="not a mesh"):
         SecureMatmulEngine(p, tile=TILE, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="chain_rows"):
         SecureLinear(s["te"], s["B"], np.random.default_rng(0),

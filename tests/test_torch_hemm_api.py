@@ -100,8 +100,11 @@ def test_default_compile_hlt_equals_reference_step1(s):
     mo = compile_hlt(ctx, plan.ds_sigma, schedule="mo")
     assert mo.plan.chunk == plan.ds_sigma.d
     assert_ct_equal(want[0], mo(s["tA"]))
-    with pytest.raises(ValueError, match="sharded"):
-        compile_hlt(ctx, plan.ds_sigma, schedule="sharded")
+    # "sharded" with no mesh runs on one rank (n_model = 1), as the
+    # reference's does
+    sharded = compile_hlt(ctx, plan.ds_sigma, schedule="sharded")
+    assert (sharded.plan.n_model, sharded.plan.n_ct) == (1, 1)
+    assert_ct_equal(want[0], sharded(s["tA"]))
 
 
 def test_hemm_shim_warns_and_matches(s):

@@ -97,10 +97,15 @@ def test_stale_program_refuses_after_rekeygen(s):
     ctx.invalidate()
     with pytest.raises(RuntimeError, match="stale"):
         prog(s["tA"], s["tB"])
-    for bad in (dict(schedule="sharded", rotation_chunk=2),
-                dict(schedule="pallas", rotation_chunk=0)):
-        with pytest.raises(ValueError):
-            compile_hemm(ctx, s["plan"], **bad)
+    with pytest.raises(ValueError):
+        compile_hemm(ctx, s["plan"], schedule="pallas", rotation_chunk=0)
+    # "sharded" with no mesh runs on one rank (n_model = 1), as the
+    # reference's does: the fused program's residues
+    sharded = compile_hemm(ctx, s["plan"], schedule="sharded",
+                           rotation_chunk=2)
+    assert (sharded.plan.step2.n_model, sharded.plan.step2.n_ct) == (1, 1)
+    assert sharded.plan.collective_bytes == 0
+    assert_ct_equal(s["jC"], sharded(s["tA"], s["tB"]))
 
 
 def test_d_padding_gives_identical_residues(s):

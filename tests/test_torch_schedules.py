@@ -27,6 +27,7 @@ from repro.core.compile import compile_hemm as j_compile_hemm
 from repro.core.compile import compile_hlt as j_compile_hlt
 from repro.core.hemm import encrypt_matrix as j_encrypt_matrix
 from repro.core.hemm import plan_hemm as j_plan_hemm
+from repro.core.hlt import SCHEDULES as J_SCHEDULES
 from repro.core.hlt import hoist as j_hoist
 
 from repro_torch import convert
@@ -170,7 +171,9 @@ def test_context_datapath_is_checked():
     with pytest.raises(ValueError, match="datapath"):
         HEContext(CkksEngine(FAME_VERIFY_SETS["fame-s-rt"], device=CPU),
                   datapath="mo")
-    assert SCHEDULES == ("baseline", "hoisted", "mo", "pallas")
+    # the reference's six, the multi-device pair included
+    assert SCHEDULES == J_SCHEDULES == ("baseline", "hoisted", "mo",
+                                        "pallas", "sharded", "sharded_xla")
 
 
 # -- hemm on every schedule ---------------------------------------------------------

@@ -296,11 +296,11 @@ def test_no_secure_layer_and_mesh_refused():
                                 device=CPU) == {}
     meshed = ServeConfig(he_tile=4, he_mesh=object())
     for build in (build_secure_serving, build_secure_linears):
-        with pytest.raises(NotImplementedError, match="multi-device schedule"):
+        with pytest.raises(TypeError, match="not a mesh"):
             build(_model_cfg(PORT), meshed, {0: np.eye(8)},
                   np.random.default_rng(0), he_params=PORT.params,
                   device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-device schedule"):
+    with pytest.raises(TypeError, match="not a mesh"):
         SessionPool(PORT.params, tile=4, mesh=object(), device=CPU)
 
 
