@@ -212,6 +212,23 @@ Phases, each printing its lines before the last:
    one-device program the parent ran first from the same seed.  Per rank
    the same numbers are printed; these are times of processes sharing
    one card, not a multi-GPU speed;
+3j. lm-mesh — the LM's tensor, expert and data parallelism on ranks that
+   share the card through gloo (the parent frees its memory and runs the
+   one-device references first).  Two ranks (data 1 × model 2):
+   ``internlm2-1.8b`` at full width in float32 through
+   ``make_sharded_serve_steps`` (prefill + 2 decode logits within 1e-3 of
+   one device) and the launcher's 4 requests (tokens equal); then
+   ``launch/serve.py --tp 2`` in bf16, every decode step timed by CUDA
+   events, its collectives and bytes held to the reckoned count (2
+   all-reduces a layer and the embedding's, the logits' all-gather) and
+   the host time inside them, peak memory a rank; a toy secure layer
+   whose ``he_mesh`` is the LM's mesh, array-equal to one device; then
+   ``launch/train.py --tp 2``: 3 steps of 4 × 512 tokens, step 1's loss
+   within 1e-3 of phase 3h's one-device first loss, ms a step, tokens/s,
+   state and peak memory a rank.  Four ranks (data 2 × model 2): the
+   dense, MoE and SSM smoke configs in float32, serving (logits, the
+   gathered cache, tokens) and 2 train steps with 2 microbatches against
+   one device on ``cuda``;
 4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
@@ -240,7 +257,8 @@ first flush with every program cached, ``launches_lm`` from phase
 3f's secure step 2, likewise, ``launches_families`` from phase 3g's
 secure step 2, ``launches_train`` from phase 3h's full-width run, and
 ``launches_sharded``: rank 0's launches over phase 3i's counted 2-rank
-call) and,
+call, ``launches_lm_mesh``: rank 0's launches in phase 3j's secure run
+on the LM's mesh) and,
 last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the result line.  The script
 imports nothing of JAX or of the ``repro`` package.
@@ -3322,7 +3340,7 @@ def check_train_run(run, steps: int, what: str) -> list:
     return losses
 
 
-def train_full_width() -> dict:
+def train_full_width() -> tuple:
     """``launch/train.py``'s ``main`` on ``TRAIN_ARCH`` at full width:
     ``TRAIN_STEPS`` steps of global batch ``TRAIN_BATCH`` × ``TRAIN_SEQ``
     tokens (remat on, as the config says), each step and its optimizer
@@ -3330,7 +3348,8 @@ def train_full_width() -> dict:
     read after; then ``TRAIN_MB_STEPS`` steps with 2
     microbatches, whose first loss (before any update, same weights) must
     be within ``TRAIN_MB_RTOL`` of the first run's.  No checkpoint is
-    written (≈ 30 GB at full width).  Returns the kernel launches."""
+    written (≈ 30 GB at full width).  Returns the kernel launches and the
+    first loss."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.train import train_step as ts_mod
@@ -3392,7 +3411,7 @@ def train_full_width() -> dict:
     if not rel <= TRAIN_MB_RTOL:
         raise AssertionError(f"microbatches: first loss {mb[0]} vs "
                              f"{losses[0]}")
-    return launches
+    return launches, losses[0]
 
 
 def train_resume() -> None:
@@ -3448,12 +3467,12 @@ def train_resume() -> None:
         f"run")
 
 
-def phase_train() -> dict:
+def phase_train() -> tuple:
     """Phase 3h: ``train_full_width`` then ``train_resume``.  Returns the
-    kernel launches of the full-width run."""
-    launches = train_full_width()
+    kernel launches of the full-width run and its first loss."""
+    launches, first_loss = train_full_width()
     train_resume()
-    return launches
+    return launches, first_loss
 
 
 # ---------------------------------------------------------------------------
@@ -3794,6 +3813,493 @@ def phase_sharded(params, main: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: the LM's tensor, expert and data parallelism on ranks that share
+# the card
+# ---------------------------------------------------------------------------
+
+
+def lm_serve_steps(cfg, params, steps, device, batch: int, max_len: int):
+    """Prefill LM_MESH_PROMPT tokens of ``batch`` seeded prompts, then
+    LM_MESH_DECODE uniform decode steps, through ``steps`` (a prefill and
+    a decode function, ``make_sharded_serve_steps``' or one device's):
+    the logits of each on the host, and the cache."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+    tok = torch.as_tensor(np.random.default_rng(LM_MESH_SEED).integers(
+        0, cfg.vocab_size, (batch, LM_MESH_PROMPT + LM_MESH_DECODE)),
+        device=device)
+    prefill, decode = steps[:2]
+    cache = tf.init_cache(cfg, batch, max_len, device=device)
+    out = []
+    with torch.no_grad():
+        lg, cache = prefill(params, tok[:, :LM_MESH_PROMPT], cache)
+        out.append(lg.float().cpu())
+        for i in range(LM_MESH_DECODE):
+            s = LM_MESH_PROMPT + i
+            lg, cache = decode(params, tok[:, s:s + 1], cache, s)
+            out.append(lg.float().cpu())
+    return out, cache
+
+
+def one_device_serve_steps(cfg):
+    from repro_torch.serve.engine import serve_decode_step, serve_prefill_step
+    return (lambda p, t, c: serve_prefill_step(cfg, p, t, c),
+            lambda p, t, c, q: serve_decode_step(cfg, p, t, c, q))
+
+
+def lm_launcher_tokens(cfg, params) -> dict:
+    """``launch/serve.py``'s traffic (4 requests of 8 seeded tokens, 8 new
+    each, a batcher of 4 slots × 128) on ``params``: the tokens by
+    request."""
+    import numpy as np
+    from repro_torch.serve.engine import ContinuousBatcher, ServeConfig
+    b = ContinuousBatcher(cfg, ServeConfig(max_batch=4, max_len=128), params)
+    rng = np.random.default_rng(0)
+    for _ in range(LM_REQUESTS):
+        b.submit(rng.integers(0, cfg.vocab_size, size=8).astype(np.int32),
+                 max_new=LM_MAX_NEW)
+    while b.step():
+        pass
+    return b.results
+
+
+def lm_mesh_secure(cfg, params, he_mesh, device) -> dict:
+    """The ``LM_ARCH`` smoke config in float32 with layer 0 under HE (toy
+    CKKS ``LM_MESH_TOY``, tile 4, a seeded d_model × 4 W), one request of
+    6 tokens decoding 2 more, the secure tier's contexts on ``he_mesh``
+    (None: one device): tokens, secure rows, the programs' schedules and
+    the kernel launches of the run."""
+    import numpy as np
+    from repro_torch.core.params import toy_params
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
+                                          build_secure_serving)
+    cfg = dataclasses.replace(cfg, secure_layers=(0,))
+    rng = np.random.default_rng(7)
+    W = rng.standard_normal((cfg.d_model, 4)) * 0.05
+    scfg = ServeConfig(max_batch=2, max_len=32, he_tile=4, he_mesh=he_mesh)
+    secure = build_secure_serving(cfg, scfg, {0: W}, rng,
+                                  he_params=toy_params(**LM_MESH_TOY),
+                                  device=device)
+    b = ContinuousBatcher(cfg, scfg, params, secure=secure)
+    rid = b.submit(np.arange(6, dtype=np.int32) * 5, 2)
+    ops.reset_launch_counts()
+    while b.step():
+        pass
+    return dict(tokens=b.results[rid],
+                rows=[out[0] for out in b.secure_results[rid]],
+                schedules=sorted({prog._step1.plan.schedule for prog, _
+                                  in secure.cache._entries.values()}),
+                launches=ops.launch_counts())
+
+
+def lm_smoke_run(arch: str, device, steps_fn=None) -> dict:
+    """An ``LM_MESH_SMOKE`` config in float32 on ``device`` (one device, or
+    this rank of the current mesh when ``steps_fn`` makes its sharded
+    steps): prefill + decode logits, the cache (gathered whole on a mesh),
+    the launcher's tokens, and ``LM_MESH_SMOKE_STEPS`` train steps of the
+    launcher's optimizer on the global batches (a rank's rows): metrics
+    and the state (gathered whole)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, device_batch, synth_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    batch, max_len = 4, 32
+    steps = (steps_fn(cfg, params, batch, max_len) if steps_fn
+             else one_device_serve_steps(cfg) + (None,))
+    logits, cache = lm_serve_steps(cfg, params, steps, device, batch,
+                                   max_len)
+    if steps[2] is not None:
+        cache = {g: {n: steps[2][g][n].gather(c) for n, c in t.items()}
+                 for g, t in cache.items()}
+    out = dict(logits=logits, tokens=lm_launcher_tokens(cfg, params),
+               cache={g: {n: c.float().cpu() for n, c in t.items()}
+                      for g, t in cache.items()})
+    tcfg = ts.TrainConfig(microbatches=2, opt=OptConfig(**TRAIN_OPT))
+    state = ts.init_train_state(cfg, tcfg,
+                                torch.Generator(device=device).manual_seed(0))
+    R = sh.ranks()
+    metrics = []
+    for step in range(LM_MESH_SMOKE_STEPS):
+        b = device_batch(cfg, synth_batch(cfg, DataConfig(
+            global_batch=4, seq_len=64), step), device)
+        if R is not None and R.D > 1:
+            b = {k: v.chunk(R.D)[R.d] for k, v in b.items()}
+        state, m = ts.train_step(cfg, tcfg, state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    if R is not None:
+        pl = ts.param_shardings(cfg, ts.abstract_train_state(cfg, tcfg),
+                                sh.get_rules())
+        state = [q.gather(t) for t, q in zip(leaves(state), leaves(pl))]
+    else:
+        state = leaves(state)
+    out.update(metrics=metrics, state=[t.float().cpu() for t in state])
+    return out
+
+
+@contextlib.contextmanager
+def collective_clock(seconds: list):
+    """``torch.distributed.all_reduce`` / ``all_gather`` timed on the host
+    clock while the block runs, summed into ``seconds[0]`` (gloo copies a
+    CUDA tensor to the host and back inside the call)."""
+    import torch.distributed as dist
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                seconds[0] += time.perf_counter() - t0
+        return wrapper
+    for n, fn in saved.items():
+        setattr(dist, n, timed(fn))
+    try:
+        yield seconds
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def timed_decode(events: list, counts: list):
+    """``models.transformer.decode_step`` wrapped: CUDA events around each
+    call, the collectives it issued (calls and bytes by kind) and the
+    host seconds spent inside them."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.models import transformer as tf
+    orig = tf.decode_step
+
+    def wrapper(*args, **kw):
+        collectives.reset()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with collective_clock([0.0]) as secs:
+            a.record()
+            out = orig(*args, **kw)
+            b.record()
+        events.append((a, b))
+        counts.append((dict(collectives.COUNTS), dict(collectives.BYTES),
+                       secs[0]))
+        return out
+    return orig, wrapper
+
+
+def lm_mesh_rank(spec: dict) -> dict:
+    """One rank of phase 3j (``launch.mesh.spawn``, gloo on ``cuda:0``).
+
+    ``full``: on (data 1 × model 2), ``LM_ARCH`` at full width in float32
+    through ``make_sharded_serve_steps`` (prefill + decode logits) and the
+    launcher's traffic (tokens); then ``launch/serve.py`` ``--tp 2`` in
+    the config's bf16 with every decode step timed by CUDA events and its
+    collectives counted; then the toy secure layer on this mesh; then
+    ``launch/train.py`` ``--tp 2``: ``LM_MESH_TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens, each timed.  ``smoke``: on
+    (data 2 × model 2), ``lm_smoke_run`` of each ``LM_MESH_SMOKE``
+    config."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import make_sharded_serve_steps
+    from repro_torch.train import train_step as ts_mod
+    from repro_torch.tree import leaves
+
+    build.load()                   # the parent built every kernel
+    mesh = make_mesh_for(dist.get_world_size(), spec["model"],
+                         device=spec["device"], backend="gloo")
+    sh.set_rules(sh.make_rules(mesh))
+    dev = mesh.device
+    out = dict(rank=mesh.rank, coords=dict(mesh.coords))
+
+    def sharded_steps(cfg, params, batch, max_len):
+        return make_sharded_serve_steps(cfg, mesh, params, batch, max_len)
+
+    if spec["kind"] == "smoke":
+        for arch in LM_MESH_SMOKE:
+            out[arch] = lm_smoke_run(arch, dev, sharded_steps)
+        return out
+
+    # float32 at full width: the one-device run's logits and tokens
+    cfg32 = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    p = tf.init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
+    out["f32_params_gb"] = sum(t.numel() * t.element_size()
+                               for t in leaves(p)) / 1e9
+    out["f32_logits"], _ = lm_serve_steps(
+        cfg32, p, sharded_steps(cfg32, p, LM_REQUESTS, 128), dev,
+        LM_REQUESTS, 128)
+    out["f32_tokens"] = lm_launcher_tokens(cfg32, p)
+    out["f32_s"] = time.perf_counter() - t0
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 through the launcher, every decode step timed and counted
+    events, counts = [], []
+    orig, wrapper = timed_decode(events, counts)
+    tf.decode_step = wrapper
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            b = launch_serve.main(["--arch", LM_ARCH, "--tp",
+                                   str(spec["model"]), "--backend", "gloo",
+                                   "--device", spec["device"],
+                                   "--requests", str(LM_REQUESTS),
+                                   "--max-new", str(LM_MAX_NEW)])
+        torch.cuda.synchronize()
+    finally:
+        tf.decode_step = orig
+    out["serve_s"] = time.perf_counter() - t0
+    out["serve_out"] = buf.getvalue().strip()
+    out["decode_ms"] = [a.elapsed_time(c) for a, c in events]
+    out["decode_coll"] = counts
+    out["serve_peak"] = torch.cuda.max_memory_allocated()
+    out["bf16_tokens"] = b.results
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the toy secure layer on the LM's mesh
+    from repro_torch.configs import get_smoke_config
+    smoke = dataclasses.replace(get_smoke_config(LM_ARCH), dtype="float32")
+    ps = tf.init_params(smoke, torch.Generator(device=dev).manual_seed(0))
+    out["secure"] = lm_mesh_secure(smoke, ps, mesh, dev)
+    del ps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training through the launcher
+    events = []
+    orig_step = ts_mod.train_step
+    ts_mod.train_step = cuda_timed(orig_step, events)
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(buf), \
+                collective_clock([0.0]) as train_secs:
+            run = launch_train.main(
+                ["--arch", TRAIN_ARCH, "--tp", str(spec["model"]),
+                 "--backend", "gloo", "--device", spec["device"],
+                 "--steps", str(LM_MESH_TRAIN_STEPS),
+                 "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                 "--ckpt-every", str(LM_MESH_TRAIN_STEPS + 1),
+                 "--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+    finally:
+        ts_mod.train_step = orig_step
+    out["train_s"] = time.perf_counter() - t0
+    out["train_out"] = buf.getvalue().strip()
+    out["train_ms"] = [a.elapsed_time(c) for a, c in events]
+    out["train_peak"] = torch.cuda.max_memory_allocated()
+    out["train_losses"] = [float(m["loss"]) for m in run.metrics]
+    out["train_gnorm"] = [float(m["grad_norm"]) for m in run.metrics]
+    out["train_coll"] = (dict(collectives.COUNTS), dict(collectives.BYTES),
+                         train_secs[0])
+    out["state_gb"] = sum(t.numel() * t.element_size()
+                          for t in leaves(run.state)) / 1e9
+    return out
+
+
+def _max_err(got: list, want: list) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want,
+                                                          strict=True))
+
+
+def check_lm_smoke(r: dict, want: dict, arch: str) -> None:
+    """A rank's smoke-config run against one device's: logits, cache and
+    metrics within LM_MESH_SMOKE_TOL, the tokens equal, the train state
+    within it but for at most LM_MESH_FLIPS of its entries (AdamW moves
+    an entry of a rounding-level gradient by ±lr on its sign)."""
+    got = r[arch]
+    errs = dict(logits=_max_err(got["logits"], want["logits"]),
+                cache=max(float((got["cache"][g][n] - c).abs().max())
+                          for g, t in want["cache"].items()
+                          for n, c in t.items()),
+                metrics=max(abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                            for g, w in zip(got["metrics"], want["metrics"])
+                            for k in w))
+    far = sum(int(((g - w).abs() > LM_MESH_SMOKE_TOL).sum())
+              for g, w in zip(got["state"], want["state"], strict=True))
+    total = sum(w.numel() for w in want["state"])
+    if got["tokens"] != want["tokens"] or far > LM_MESH_FLIPS * total or \
+            not all(e <= LM_MESH_SMOKE_TOL for e in errs.values()):
+        raise AssertionError(f"[lm-mesh4] rank {r['rank']} {arch}: tokens "
+                             f"equal {got['tokens'] == want['tokens']}, "
+                             f"errors {errs}, state entries off {far} of "
+                             f"{total}")
+    log(f"[lm-mesh4] rank {r['rank']} {r['coords']} {arch} (float32 smoke, "
+        f"cuda): logits / cache / metrics max err "
+        f"{', '.join('%.3e' % e for e in errs.values())} (bound "
+        f"{LM_MESH_SMOKE_TOL}); state max err "
+        f"{_max_err(got['state'], want['state']):.3e}, {far} of {total} "
+        f"entries past the bound; tokens equal to one device's")
+
+
+def phase_lm_mesh(first_loss: float, device: str = "cuda") -> dict:
+    """Phase 3j: the LM's tensor, expert and data parallelism on ranks
+    that time-share the card through gloo.  The parent frees its memory,
+    runs the one-device references (``LM_ARCH`` at full width in float32:
+    prefill + decode logits and the launcher's tokens; the toy secure
+    layer; the ``LM_MESH_SMOKE`` configs), then two ranks (data 1 × model
+    2) run ``lm_mesh_rank``'s full-width serving (float32 tokens equal,
+    logits within LM_MESH_LOGIT_TOL; then bf16, timed), the secure layer
+    on the LM's mesh (array-equal) and ``LM_MESH_TRAIN_STEPS`` train
+    steps (step 1's loss within LM_MESH_LOSS_RTOL of phase 3h's one-device
+    first loss ``first_loss``), and four ranks (data 2 × model 2) the
+    smoke configs, serving and training, against one device, all on
+    ``device``.  Returns rank 0's kernel launches in the secure run on the
+    LM's mesh."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import transformer as tf
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    p = tf.init_params(cfg32, torch.Generator(device=device).manual_seed(0))
+    want_logits, _ = lm_serve_steps(cfg32, p, one_device_serve_steps(cfg32)
+                                    + (None,), device, LM_REQUESTS, 128)
+    want_tokens = lm_launcher_tokens(cfg32, p)
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = dataclasses.replace(get_smoke_config(LM_ARCH), dtype="float32")
+    ps = tf.init_params(smoke, torch.Generator(device=device).manual_seed(0))
+    want_secure = lm_mesh_secure(smoke, ps, None, device)
+    del ps
+    want_smoke = {arch: lm_smoke_run(arch, device) for arch in LM_MESH_SMOKE}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm-mesh] one-device references (full width f32, the secure toy, "
+        f"the smoke configs): {time.perf_counter() - t0:.1f} s; memory "
+        f"allocated by the parent now "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+    t0 = time.perf_counter()
+    outs = spawn(lm_mesh_rank, 2, dict(kind="full", model=2, device=device),
+                 device=device, backend="gloo", timeout=600)
+    log(f"[lm-mesh] 2 ranks (data 1 × model 2, gloo, both on cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = get_config(LM_ARCH)
+    layers = cfg.num_layers
+    reckon = dict(all_reduce=2 * layers + 1, all_gather=1)
+    # a decode step runs the batcher's 4 slots; 16-bit partial sums travel
+    # as float32
+    reckon_bytes = dict(all_reduce=(2 * layers + 1) * 4 * cfg.d_model * 4,
+                        all_gather=4 * cfg.vocab_size * 4)
+    for r in outs:
+        err = _max_err(r["f32_logits"], want_logits)
+        if r["f32_tokens"] != want_tokens or not err <= LM_MESH_LOGIT_TOL:
+            raise AssertionError(f"[lm-mesh] rank {r['rank']}: float32 "
+                                 f"tokens equal "
+                                 f"{r['f32_tokens'] == want_tokens}, logits "
+                                 f"max err {err}")
+        if r["bf16_tokens"] != outs[0]["bf16_tokens"]:
+            raise AssertionError(f"[lm-mesh] rank {r['rank']}: bf16 tokens "
+                                 f"differ from rank 0's")
+        steady = r["decode_coll"]
+        bad = [c for c, _, _ in steady
+               if {k: v for k, v in c.items() if v} != reckon]
+        if bad:
+            raise AssertionError(f"[lm-mesh] rank {r['rank']}: decode-step "
+                                 f"collectives {bad[0]}, reckoned {reckon}")
+        byte = steady[-1][1]
+        if {k: byte[k] for k in reckon_bytes} != reckon_bytes:
+            raise AssertionError(f"[lm-mesh] rank {r['rank']}: decode-step "
+                                 f"bytes {byte}, reckoned {reckon_bytes}")
+        ms = sorted(r["decode_ms"][1:])
+        log(f"[lm-mesh] rank {r['rank']} {r['coords']}: {LM_ARCH} full width "
+            f"float32 ({r['f32_params_gb']:.2f} GB of parameters a rank): "
+            f"prefill + {LM_MESH_DECODE} decode logits max err {err:.3e} "
+            f"(bound {LM_MESH_LOGIT_TOL}), the launcher's {LM_REQUESTS} "
+            f"requests' tokens equal to one device's ({r['f32_s']:.1f} s)")
+        log(f"[lm-mesh] rank {r['rank']}: launch/serve.py --tp 2 (bf16): "
+            f"{r['serve_out']!r} in {r['serve_s']:.1f} s; decode step ms "
+            f"(CUDA events) {['%.2f' % x for x in r['decode_ms']]}, median "
+            f"after the first {ms[len(ms) // 2]:.2f}, of which inside the "
+            f"collectives (host clock) "
+            f"{['%.2f' % (c[2] * 1e3) for c in steady]}; collectives a decode "
+            f"step {json.dumps({k: v for k, v in steady[-1][0].items() if v})}"
+            f" (reckoned {json.dumps(reckon)}), bytes "
+            f"{json.dumps({k: v for k, v in byte.items() if v})} (reckoned "
+            f"{json.dumps(reckon_bytes)}); peak {r['serve_peak'] / 1e9:.2f} "
+            f"GB (max_memory_allocated of this rank)")
+        sec = r["secure"]
+        if sec["schedules"] != ["sharded"] or \
+                sec["tokens"] != want_secure["tokens"] or \
+                len(sec["rows"]) != len(want_secure["rows"]) or not all(
+                    (g == w).all() for g, w in zip(sec["rows"],
+                                                   want_secure["rows"])):
+            raise AssertionError(f"[lm-mesh] rank {r['rank']}: the secure "
+                                 f"layer on the LM mesh differs from one "
+                                 f"device ({sec['schedules']})")
+        log(f"[lm-mesh] rank {r['rank']}: toy secure layer (logN "
+            f"{LM_MESH_TOY['logN']}, tile 4) with he_mesh = the LM's mesh: "
+            f"schedule {sec['schedules']}, {len(sec['rows'])} secure rows "
+            f"and the tokens array-equal to one device's; launches "
+            f"{json.dumps({k: v for k, v in sec['launches'].items() if v})}")
+        losses = r["train_losses"]
+        rel = abs(losses[0] - first_loss) / abs(first_loss)
+        if not (rel <= LM_MESH_LOSS_RTOL
+                and all(math.isfinite(x) for x in losses + r["train_gnorm"])):
+            raise AssertionError(f"[lm-mesh] rank {r['rank']}: train losses "
+                                 f"{losses} (phase 3h's first {first_loss})")
+        tms = sorted(r["train_ms"][1:])
+        med = tms[len(tms) // 2]
+        tc, tb, tsec = r["train_coll"]
+        log(f"[lm-mesh] rank {r['rank']}: launch/train.py --tp 2, "
+            f"{LM_MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+            f"tokens in {r['train_s']:.1f} s with weight init: loss "
+            f"{['%.6f' % x for x in losses]} (step 1 vs phase 3h's one-device "
+            f"{first_loss:.6f}: relative {rel:.3e}, bound "
+            f"{LM_MESH_LOSS_RTOL}); grad norm "
+            f"{['%.4f' % x for x in r['train_gnorm']]}; ms a step (CUDA "
+            f"events) {['%.1f' % x for x in r['train_ms']]}, median after "
+            f"the first {med:.1f} ({TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} "
+            f"tokens/s of the global batch); state {r['state_gb']:.2f} GB a "
+            f"rank, peak {r['train_peak'] / 1e9:.2f} GB (max_memory_allocated"
+            f" of this rank); collectives over the run "
+            f"{json.dumps({k: v for k, v in tc.items() if v})}, bytes "
+            f"{json.dumps({k: v for k, v in tb.items() if v})}, "
+            f"{tsec:.1f} s inside them (host clock, with weight init)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs4 = spawn(lm_mesh_rank, 4, dict(kind="smoke", model=2,
+                                        device=device),
+                  device=device, backend="gloo", timeout=600)
+    log(f"[lm-mesh4] 4 ranks (data 2 × model 2, gloo, all on cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in outs4:
+        for arch in LM_MESH_SMOKE:
+            check_lm_smoke(r, want_smoke[arch], arch)
+    log("[lm-mesh] these times are of ranks that time-share one card "
+        "through a host-side collective: not a multi-GPU speed")
+    return outs[0]["secure"]["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 4: whole program on the kernels vs on the plain versions
 # ---------------------------------------------------------------------------
 
@@ -4075,6 +4581,24 @@ PAD_KERNELS = ("intt_scale", "baseconv_ntt", "fused_hlt_indexed",
 MAIN_SEED = 20260
 SHARDED_SEED4 = 20261
 
+#: phase 3j: the LM on (data 1 × model 2) ranks sharing the card: a float32
+#: check of LM_MESH_PROMPT tokens then LM_MESH_DECODE decode steps of
+#: LM_REQUESTS seeded prompts (logits within LM_MESH_LOGIT_TOL of one
+#: device: summation order only, over 24 layers), LM_MESH_TRAIN_STEPS
+#: train steps (step 1's loss within LM_MESH_LOSS_RTOL of phase 3h's,
+#: bf16); then (data 2 × model 2) the smoke configs in float32 within
+#: LM_MESH_SMOKE_TOL, LM_MESH_SMOKE_STEPS train steps each
+LM_MESH_SEED = 20262
+LM_MESH_PROMPT, LM_MESH_DECODE = 8, 2
+LM_MESH_LOGIT_TOL = 1e-3
+LM_MESH_TRAIN_STEPS = 3
+LM_MESH_LOSS_RTOL = 1e-3
+LM_MESH_SMOKE = ("internlm2-1.8b", "granite-moe-3b-a800m", "mamba2-780m")
+LM_MESH_SMOKE_TOL = 1e-4
+LM_MESH_FLIPS = 1e-3
+LM_MESH_SMOKE_STEPS = 2
+LM_MESH_TOY = dict(logN=6, L=4, k=3, beta=2)
+
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
@@ -4168,7 +4692,7 @@ def main() -> int:
     log(f"[fam] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    train = phase_train()
+    train, first_loss = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
@@ -4181,6 +4705,12 @@ def main() -> int:
     log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    lm_mesh = phase_lm_mesh(first_loss)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm-mesh] phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     phase_cpu_vs_cuda()
     log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] whole command {time.perf_counter() - T_START:.1f} s")
@@ -4189,7 +4719,8 @@ def main() -> int:
         dict(r.entry(launches[name]), launches_blockmm=blockmm[name],
              launches_chain=chain[name], launches_serve=serve[name],
              launches_lm=lm[name], launches_families=families[name],
-             launches_train=train[name], launches_sharded=sharded[name])
+             launches_train=train[name], launches_sharded=sharded[name],
+             launches_lm_mesh=lm_mesh.get(name, 0))
         for name, r in records.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

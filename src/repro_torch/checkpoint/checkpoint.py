@@ -10,6 +10,12 @@ a restore splits it, so the key set is the reference's and a checkpoint
 either package writes restores in the other.  Atomic rename, retained
 history, and an async writer that blocks the loop only for the copy to
 the host.
+
+On a mesh (``shardings``: the state's placements,
+``train_step.param_shardings``) a save gathers every leaf whole
+(``Placement.gather``, on every rank) and rank 0 writes the reference's
+file; a restore reads the whole arrays and keeps a rank's blocks, so a
+checkpoint written on one mesh restores on another (elastic resume).
 """
 from __future__ import annotations
 
@@ -23,8 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import (leaves_with_paths, reference_path, tree_map,
-                              unflatten)
+from repro_torch.tree import (leaves, leaves_with_paths, reference_path,
+                              tree_map, unflatten)
 
 SEP = "§"
 
@@ -66,9 +72,36 @@ def _unflatten_into(template, flat: dict):
     return unflatten(template, out)
 
 
+def gather_state(state, shardings):
+    """Every leaf of a rank's ``state`` whole (``shardings`` None: the
+    state itself)."""
+    if shardings is None:
+        return state
+    return unflatten(state, [pl.gather(t) for t, pl in
+                             zip(leaves(state), leaves(shardings),
+                                 strict=True)])
+
+
+def _rank0(shardings) -> bool:
+    if shardings is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, state, extra: Optional[dict] = None,
-         keep: int = 3) -> str:
-    """Atomic checkpoint write; prunes to the newest `keep` checkpoints."""
+         keep: int = 3, shardings=None) -> str:
+    """Atomic checkpoint write; prunes to the newest `keep` checkpoints.
+    On a mesh (``shardings``) every rank calls it: the state is gathered
+    whole, rank 0 writes, and every rank returns once the file is
+    there."""
+    if shardings is not None:
+        from repro_torch.distributed import collectives
+        whole = gather_state(state, shardings)
+        path = save(ckpt_dir, step, whole, extra, keep) if _rank0(
+            shardings) else os.path.join(ckpt_dir, f"step_{step}")
+        collectives.barrier()
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
@@ -110,11 +143,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, state_template, step: Optional[int] = None):
+def restore(ckpt_dir: str, state_template, step: Optional[int] = None,
+            shardings=None):
     """Load checkpoint ``step`` (default: the latest) into the structure,
     shapes, dtypes and devices of ``state_template`` (tensors, or ``meta``
     tensors from ``abstract_train_state``, whose leaves land on the CPU).
-    Returns (state, meta)."""
+    With ``shardings`` (the placements on the current mesh) the template
+    holds whole shapes and a rank keeps its blocks, on the mesh's device
+    (elastic resume onto another mesh).  Returns (state, meta)."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -122,6 +158,10 @@ def restore(ckpt_dir: str, state_template, step: Optional[int] = None):
     with np.load(os.path.join(path, "state.npz")) as z:
         flat = {k: z[k] for k in z.files}
     state = _unflatten_into(state_template, flat)
+    if shardings is not None:
+        state = unflatten(state, [
+            pl.local(t).to(pl.mesh.device) for t, pl in
+            zip(leaves(state), leaves(shardings), strict=True)])
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return state, meta
@@ -132,15 +172,22 @@ class AsyncCheckpointer:
     train loop waits only for the device-to-host copy, not the disk.
     ``wait`` joins the writer and raises what it raised."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, shardings=None):
+        """``shardings``: the state's placements on a mesh (every rank
+        saves; the leaves are gathered on the loop's thread and rank 0
+        writes)."""
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.shardings = shardings
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.last_path: Optional[str] = None
 
     def save(self, step: int, state, extra: Optional[dict] = None):
         self.wait()
+        state = gather_state(state, self.shardings)
+        if not _rank0(self.shardings):
+            return
         # a copy even on the CPU: the train step updates the state in place
         host_state = tree_map(lambda t: t.detach().to("cpu", copy=True),
                               state)
@@ -156,9 +203,14 @@ class AsyncCheckpointer:
             self._error = e
 
     def wait(self):
+        """Join the writer (on a mesh: every rank returns once rank 0's
+        writer has)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.shardings is not None:
+            from repro_torch.distributed import collectives
+            collectives.barrier()
         if self._error is not None:
             error, self._error = self._error, None
             raise error

@@ -67,14 +67,33 @@ def hemm_plan(plan, device) -> HeMMPlan:
         rot_steps=tuple(int(r) for r in plan.rot_steps))
 
 
-def model_params(ref_params: dict, cfg: ModelConfig, device) -> dict:
+def _localize(tree: dict, cfg: ModelConfig, mesh) -> dict:
+    """A rank's blocks of a whole port tree on ``mesh`` (whose rules must
+    be the current ones): ``param_shardings``' placements."""
+    if mesh is None:
+        return tree
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train.train_step import param_shardings
+    from repro_torch.tree import leaves, unflatten
+    rules = sh.get_rules()
+    if rules.mesh is not mesh:
+        raise ValueError("install the mesh's rules first: "
+                         "sharding.set_rules(sharding.make_rules(mesh))")
+    pl = param_shardings(cfg, tree, rules)
+    return unflatten(tree, [q.local(t) for t, q in
+                            zip(leaves(tree), leaves(pl), strict=True)])
+
+
+def model_params(ref_params: dict, cfg: ModelConfig, device,
+                 mesh=None) -> dict:
     """The reference's ``transformer.init_params`` pytree -> the port's
     parameter dict on ``device``, each leaf in its reference dtype (the
     activation dtype, or float32 for the MoE router and the SSM scalars).
     Every leaf under ``layers`` carries the leading ``nb`` axis of the
     reference's ``jax.vmap`` (``cfg``'s block count); block b of the port
     takes index b of each, so block order is kept.  Values go through
-    float32, which holds bf16 and f32 exactly."""
+    float32, which holds bf16 and f32 exactly.  With ``mesh`` (whose rules
+    are installed), a rank's blocks (``train_step.param_shardings``)."""
     def tensor(a):
         a = np.asarray(a)
         return torch.from_numpy(np.array(a, np.float32)).to(
@@ -85,19 +104,21 @@ def model_params(ref_params: dict, cfg: ModelConfig, device) -> dict:
     nb, _ = _block_structure(cfg)
     out["layers"] = [tree_map(lambda t, b=b: t[b].contiguous(), stacked)
                      for b in range(nb)]
-    return out
+    return _localize(out, cfg, mesh)
 
 
-def train_state(ref_state: dict, cfg: ModelConfig, device) -> dict:
+def train_state(ref_state: dict, cfg: ModelConfig, device,
+                mesh=None) -> dict:
     """The reference's ``init_train_state`` / ``train_step`` state
     ``{"params", "opt": {step, master, m, v[, ef]}}`` -> the port's on
     ``device``: every tree through ``model_params`` (blocks unstacked,
-    dtypes kept), ``step`` a 0-d int32 tensor."""
+    dtypes kept), ``step`` a 0-d int32 tensor; with ``mesh``, a rank's
+    blocks of every tree."""
     opt = ref_state["opt"]
     out = {"step": torch.tensor(int(np.asarray(opt["step"])),
                                 dtype=torch.int32, device=device)}
     for name in ("master", "m", "v", "ef"):
         if name in opt:
-            out[name] = model_params(opt[name], cfg, device)
-    return {"params": model_params(ref_state["params"], cfg, device),
+            out[name] = model_params(opt[name], cfg, device, mesh)
+    return {"params": model_params(ref_state["params"], cfg, device, mesh),
             "opt": out}

@@ -5,7 +5,9 @@ so every batch is array-equal to the reference's.
 Deterministic per (seed, host, step): every host generates only its shard
 of the global batch, and a restarted job with a different host count
 resumes the same global sample stream (the checkpoint stores ``step``).
-One host unless ``DataConfig`` says otherwise.  ``device_batch`` puts a
+One host unless ``DataConfig`` says otherwise: on a mesh the training
+launcher sets ``num_hosts`` / ``host_id`` to the ranks along the batch
+axes (pod × data) and this rank's index there.  ``device_batch`` puts a
 host batch on a device as tensors.  ``DataConfig`` leaves out the
 reference's ``kind``, which nothing reads: the model's family sets the
 batch's keys.

@@ -72,16 +72,26 @@ class ElasticRunner:
     ``total_steps``, checkpointing every ``ckpt_every_steps`` and at the
     end; when ``fail_hook`` raises ``SimulatedFailure``, the runner
     restores the latest checkpoint into ``state_template_fn()`` and
-    continues from its step.  One device: the reference's ``remesh_fn``
-    (a new mesh before the restore) is left out."""
+    continues from its step.
+
+    On a mesh, ``shardings`` is the state's placements (a save gathers
+    the state and rank 0 writes; a restore keeps a rank's blocks) and
+    ``remesh_fn``, called after a failure and before the restore, may
+    install another mesh's rules and returns the state's placements on
+    it (None: keep the current ones); the template is then the whole
+    state's shapes (``abstract_train_state``)."""
 
     def __init__(self, ckpt_dir: str, cfg: FaultConfig, step_fn, batch_fn,
-                 state_template_fn: Callable[[], object]):
+                 state_template_fn: Callable[[], object],
+                 remesh_fn: Optional[Callable[[], object]] = None,
+                 shardings=None):
         self.ckpt_dir = ckpt_dir
         self.cfg = cfg
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.state_template_fn = state_template_fn
+        self.remesh_fn = remesh_fn
+        self.shardings = shardings
         self.restarts = 0
 
     def run(self, state, total_steps: int,
@@ -100,17 +110,23 @@ class ElasticRunner:
                 if step % self.cfg.ckpt_every_steps == 0 or step == total_steps:
                     ckpt.save(self.ckpt_dir, step, state,
                               extra={"metrics": {k: float(v) for k, v
-                                                 in metrics.items()}})
+                                                 in metrics.items()}},
+                              shardings=self.shardings)
             except SimulatedFailure:
                 self.restarts += 1
                 if self.restarts > self.cfg.max_restarts:
                     raise
+                if self.remesh_fn is not None:
+                    shardings = self.remesh_fn()
+                    if shardings is not None:
+                        self.shardings = shardings
                 last = ckpt.latest_step(self.ckpt_dir)
                 if last is None:
                     step = 0
                     continue
                 state, meta = ckpt.restore(self.ckpt_dir,
-                                           self.state_template_fn())
+                                           self.state_template_fn(),
+                                           shardings=self.shardings)
                 step = meta["step"]
         return state, step
 

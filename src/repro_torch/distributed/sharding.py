@@ -14,15 +14,35 @@ as ``launch/mesh.py`` :class:`~repro_torch.launch.mesh.Mesh`.  ``spec``
 returns a tuple of physical axis names (or tuples of them, or None) per
 dimension, the reference's ``PartitionSpec`` entries.
 
-The reference's ``ShardingRules.sharding`` / ``constrain`` and its
-module-level ``shard`` are GSPMD constraints that only the LM's tensor
-parallelism reads; they come with the LM half of the multi-device
-schedule, not with the HE schedule.
+The LM's layers run on explicit local shards (Megatron-style column- and
+row-parallel products, ``distributed/collectives.py``), not under a
+compiler that places arrays: ``ShardingRules.sharding`` returns a
+:class:`Placement` (the port's ``NamedSharding``: the mesh and the spec)
+that cuts a rank's block out of a whole tensor (``local``) and puts the
+whole back together from the ranks' blocks (``gather``).  ``constrain`` /
+``shard`` do what the reference's do to the spec (axes that do not divide
+their dimension are dropped) and, under a mesh, check that a layer's
+local tensor has the shape that spec gives it; they issue no collective.
+
+A rank's block is the contiguous one GSPMD would hold, except along a
+*packed* dimension (``Placement.segments``): the Mamba2 ``in_proj``
+output (z | x | B | C | dt), the ``conv_w`` columns and the serve cache's
+``conv`` channels (x | B | C).  The reference shards such a dimension
+evenly, which is only a layout under GSPMD and does not line up with the
+segments; here a rank holds its heads' part of each head-split segment
+(z, x, dt) and the whole of each replicated one (B and C, one group), so
+its products stay local.  ``local`` and ``gather`` still round-trip the
+whole leaf.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
+
+import torch
+
+from repro_torch.distributed import collectives
 
 #: default logical -> physical mapping; None = replicated
 DEFAULT_RULES: dict = {
@@ -76,6 +96,118 @@ class ShardingRules:
     def _axis_in_mesh(self, axis: str) -> bool:
         return self.mesh is None or axis in self.mesh.axis_names
 
+    def sharding(self, *logical, segments=None) -> Optional["Placement"]:
+        """The :class:`Placement` of ``logical`` on the mesh (None without
+        a mesh).  ``segments``: a packed dimension's layout (see
+        :class:`Placement`)."""
+        if self.mesh is None:
+            return None
+        return Placement(self.mesh, self.spec(*logical), segments)
+
+    def constrain(self, x, *logical, full=None):
+        """The reference's ``with_sharding_constraint``: a no-op without a
+        mesh.  Axes that do not divide their dimension are dropped
+        (replicated).  Under a mesh ``x`` is a rank's local block and
+        ``full`` the whole tensor's shape (None for a dimension the caller
+        leaves unchecked): a dimension whose axis survives must be
+        ``full[i] / n`` long, any other ``full[i]``; a mismatch raises.
+        Returns ``x``; no collective is issued."""
+        if self.mesh is None:
+            return x
+        full = tuple(full) if full is not None else (None,) * x.ndim
+        spec = sanitize_spec(self, logical,
+                             [f if f is not None else 0 for f in full])
+        phys = self.spec(*spec)
+        for i, (ax, f) in enumerate(zip(phys, full)):
+            if f is None:
+                continue
+            axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+            want = f // self.mesh.size(axes) if axes else f
+            if x.shape[i] != want:
+                raise ValueError(
+                    f"shard{tuple(logical)}: dimension {i} is {x.shape[i]} "
+                    f"on this rank, the spec {phys} of a {tuple(full)} "
+                    f"tensor gives {want}")
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A tensor's layout on a mesh: ``spec`` gives each dimension's mesh
+    axis (None, a name, or a tuple of names, the reference's
+    ``PartitionSpec``), and a rank holds the block of its coordinates.
+    ``segments``, when set, is ``(dim, ((size, split), ...))``: dimension
+    ``dim`` packs segments of those sizes, and a rank holds its block of
+    each ``split`` one and the whole of each other (module docstring)."""
+    mesh: object
+    spec: tuple
+    segments: Optional[tuple] = None
+
+    def _axes(self, dim: int) -> tuple:
+        ax = self.spec[dim]
+        return (ax,) if isinstance(ax, str) else tuple(ax)
+
+    def local_shape(self, shape) -> tuple:
+        out = list(shape)
+        for dim, ax in enumerate(self.spec):
+            if ax is None:
+                continue
+            n = self.mesh.size(self._axes(dim))
+            if self.segments is not None and self.segments[0] == dim:
+                out[dim] = sum(size // n if split else size
+                               for size, split in self.segments[1])
+            else:
+                out[dim] //= n
+        return tuple(out)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor ``full``."""
+        t = full
+        for dim, ax in enumerate(self.spec):
+            if ax is None:
+                continue
+            axes = self._axes(dim)
+            n, i = self.mesh.size(axes), self.mesh.index(axes)
+            if self.segments is not None and self.segments[0] == dim:
+                parts = t.split([size for size, _ in self.segments[1]], dim)
+                t = torch.cat([p.chunk(n, dim)[i] if split else p
+                               for p, (_, split) in zip(parts,
+                                                        self.segments[1])],
+                              dim=dim)
+            else:
+                if t.shape[dim] % n:
+                    raise ValueError(f"dimension {dim} of {tuple(full.shape)}"
+                                     f" does not split {n} ways")
+                t = t.chunk(n, dim)[i]
+        return t.contiguous()
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's block (an all-gather along
+        each split dimension, through ``collectives``); every rank of the
+        mesh calls it."""
+        t = local
+        for dim, ax in enumerate(self.spec):
+            if ax is None:
+                continue
+            axes = self._axes(dim)
+            n = self.mesh.size(axes)
+            if n == 1:
+                continue
+            blocks = collectives.all_gather(t.contiguous(),
+                                            self.mesh.group(axes), n)
+            if self.segments is not None and self.segments[0] == dim:
+                sizes = [size // n if split else size
+                         for size, split in self.segments[1]]
+                pieces = [b.split(sizes, dim) for b in blocks]
+                t = torch.cat(
+                    [torch.cat([p[j] for p in pieces], dim) if split
+                     else pieces[0][j]
+                     for j, (_, split) in enumerate(self.segments[1])],
+                    dim=dim)
+            else:
+                t = torch.cat(blocks, dim=dim)
+        return t
+
 
 def logical_axis_size(rules: ShardingRules, ax: Optional[str]) -> int:
     """Product of the mesh-axis sizes a logical axis maps to (1 if
@@ -118,3 +250,109 @@ def set_rules(rules: ShardingRules) -> None:
 
 def get_rules() -> ShardingRules:
     return _CURRENT
+
+
+def shard(x, *logical, full=None):
+    """``get_rules().constrain(x, *logical, full=full)``."""
+    return _CURRENT.constrain(x, *logical, full=full)
+
+
+# ---------------------------------------------------------------------------
+# a rank's view, for the layers
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """What a layer reads of the current rules' mesh: the ``model`` axis
+    (size ``M``, this rank's index ``m``, its process group), the
+    ``batch`` axes (pod × data: ``D``, ``d``, ``batch_group``) and the
+    ``fsdp`` axis (``F``, ``f``, ``fsdp_group``)."""
+    mesh: object
+    M: int
+    m: int
+    model_group: object
+    D: int
+    d: int
+    batch_group: object
+    F: int
+    f: int
+    fsdp_group: object
+
+    def split(self, n: int) -> bool:
+        """Whether a dimension of ``n`` mapped to ``model`` is split (the
+        reference drops an axis that does not divide)."""
+        return self.M > 1 and n % self.M == 0
+
+    def part(self, n: int) -> slice:
+        """This model rank's block of a dimension of ``n`` split over
+        ``model`` (all of it when it is not split)."""
+        if not self.split(n):
+            return slice(0, n)
+        k = n // self.M
+        return slice(self.m * k, (self.m + 1) * k)
+
+
+def _logical_axes(rules: ShardingRules, logical: str) -> tuple:
+    return tuple(a for a in (rules.rules.get(logical) or ())
+                 if a in rules.mesh.shape)
+
+
+def ranks(rules: Optional[ShardingRules] = None) -> Optional[Ranks]:
+    """The current rules' :class:`Ranks`, or None without a mesh."""
+    rules = _CURRENT if rules is None else rules
+    mesh = rules.mesh
+    if mesh is None:
+        return None
+    out = {}
+    for key, logical in (("model", "heads"), ("batch", "batch"),
+                         ("fsdp", "fsdp")):
+        axes = _logical_axes(rules, logical)
+        out[key] = (mesh.size(axes), mesh.index(axes),
+                    mesh.group(axes) if axes else None)
+    return Ranks(mesh, *out["model"], *out["batch"], *out["fsdp"])
+
+
+_BATCH_SPLIT = [False]
+
+
+@contextlib.contextmanager
+def batch_split(split: bool = True):
+    """Inside the block, the layers' activations hold this rank's rows of
+    the batch (split over the ``batch`` axes: a train step, a decode step);
+    outside, every rank holds the whole batch (a one-request prefill)."""
+    _BATCH_SPLIT.append(split)
+    try:
+        yield
+    finally:
+        _BATCH_SPLIT.pop()
+
+
+def is_batch_split() -> bool:
+    return _BATCH_SPLIT[-1]
+
+
+def gather_params(tree, placements):
+    """ZeRO-3: every leaf of ``tree`` (a rank's blocks) gathered along the
+    dimensions its :class:`Placement` splits over the ``fsdp`` axes
+    (forward all-gather, backward reduce-scatter); leaves split over
+    ``model`` only are returned as they are.  ``placements`` is the
+    matching tree of placements (None: no mesh, ``tree`` itself)."""
+    if placements is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_params(v, placements[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [gather_params(v, p) for v, p in zip(tree, placements)]
+    if placements is None or not isinstance(tree, torch.Tensor):
+        return tree
+    rules = _CURRENT
+    fsdp = _logical_axes(rules, "fsdp")
+    t = tree
+    for dim, ax in enumerate(placements.spec):
+        axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+        if axes and set(axes) <= set(fsdp):
+            mesh = placements.mesh
+            t = collectives.gather_fsdp(t, mesh.group(axes), mesh.size(axes),
+                                        mesh.index(axes), dim)
+    return t

@@ -3,8 +3,9 @@
 
 A :class:`Mesh` lays the ranks of an initialized process group out as a
 grid with named axes (row-major: the last axis varies fastest), one
-process and one device a rank, and holds one process group per axis (and
-one over the ciphertext axes ``pod`` × ``data`` when both exist).  Every
+process and one device a rank, and holds one process group per set of
+axes (``pod`` × ``data`` is the ciphertext and batch axes; a leaf split
+over ``data`` and ``model`` reduces over both).  Every
 rank runs the same program on the same inputs, as a JAX mesh's replicated
 arguments; ``core/hlt_dist.py`` reads a rank's coordinates and groups.
 A mesh refuses ranks that hash strings differently (a ``PYTHONHASHSEED``
@@ -13,8 +14,10 @@ different orders and their collectives would pair up across programs.
 
 ``make_mesh_for`` and ``make_production_mesh`` build a mesh over the
 process group the caller initialized (they assert its world size, as the
-reference asserts its device count); :func:`spawn` starts the ranks on
-this host and initializes that group.
+reference asserts its device count): one that ``torchrun`` started
+(:func:`init_from_env` reads its ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` / ``MASTER_PORT``), or one of :func:`spawn`, which
+starts the ranks on this host and initializes the group.
 
 The backend is an argument, never a silent switch: ``"nccl"`` is the
 default on ``cuda``, ``"gloo"`` on ``cpu``; ranks that share one card
@@ -23,6 +26,7 @@ need ``"gloo"`` (NCCL takes one rank a card, and the mesh refuses more).
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 import shutil
 import tempfile
@@ -45,7 +49,8 @@ class Mesh:
     ``axis_names`` and ``shape`` (axis -> size) are what
     ``distributed/sharding.py`` reads; ``coords`` is this rank's position,
     ``device`` its device, ``group(axes)`` the process group of the ranks
-    that differ from this one along ``axes`` only."""
+    that differ from this one along ``axes`` only (its ranks in
+    row-major order of the mesh's axes)."""
 
     def __init__(self, shape, axis_names, *, device, backend: str):
         shape = tuple(int(s) for s in shape)
@@ -83,13 +88,11 @@ class Mesh:
                                                                  shape))))
         self._groups: dict = {}
         # every rank creates every group, in the same order, as
-        # torch.distributed requires
-        wanted = [(a,) for a in axis_names]
-        ct = tuple(a for a in CT_AXES if a in axis_names)
-        if len(ct) > 1:
-            wanted.append(ct)
-        for axes in wanted:
-            self._make_groups(axes)
+        # torch.distributed requires: one a set of axes (a leaf split over
+        # data and model reduces over both)
+        for k in range(1, len(axis_names) + 1):
+            for axes in itertools.combinations(axis_names, k):
+                self._make_groups(axes)
 
     def _make_groups(self, axes: tuple) -> None:
         if self.size(axes) == 1:
@@ -122,12 +125,9 @@ class Mesh:
     def group(self, axes):
         """The process group along ``axes`` (None when it holds one rank)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        axes = tuple(a for a in axes if a in self.shape)
+        axes = tuple(a for a in self.axis_names if a in axes)
         if self.size(axes) == 1:
             return None
-        if axes not in self._groups:
-            raise KeyError(f"no process group along {axes}: a mesh makes "
-                           f"one per axis and one over {CT_AXES}")
         return self._groups[axes]
 
 
@@ -176,11 +176,37 @@ def make_mesh_for(num_devices: int, model_parallel: int = 1,
 def make_production_mesh(*, multi_pod: bool = False, device="cuda",
                          backend=None) -> Mesh:
     """16 × 16 = 256 ranks (data, model); (2, 16, 16) over (pod, data,
-    model) when ``multi_pod`` (512)."""
+    model) when ``multi_pod`` (512).  Raises, naming the count, unless
+    the initialized process group has exactly that many ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != need:
+        raise RuntimeError(
+            f"the {'multi-pod ' if multi_pod else ''}production mesh "
+            f"{dict(zip(axes, shape))} needs {need} ranks; the process group "
+            f"has {have} (start them with torchrun)")
     backend = default_backend(device) if backend is None else backend
     return Mesh(shape, axes, device=device, backend=backend)
+
+
+def init_from_env(device, backend=None, timeout: float = 300.0) -> bool:
+    """Initialize the default process group from ``torchrun``'s
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) when it is set and no group is up; on ``cuda`` the
+    rank takes card ``LOCAL_RANK``.  Returns whether a group is up."""
+    if dist.is_initialized():
+        return True
+    if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+        return False
+    backend = default_backend(device) if backend is None else backend
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method="env://",
+                            timeout=datetime.timedelta(seconds=timeout))
+    return True
 
 
 # ---------------------------------------------------------------------------

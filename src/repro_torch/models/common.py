@@ -5,8 +5,18 @@ variants.  Parameters are dicts of tensors under the reference pytree's
 names; the products stay plain ``torch.matmul`` / ``einsum``, as the
 reference computes them in plain ``jnp`` outside any Pallas kernel.
 
-The reference's ``shard(...)`` constraints (no-ops without a mesh) are
-left out: the multi-device layout is not ported yet.
+Under a mesh (``distributed/sharding.py``'s current rules) a layer holds
+its rank's blocks and runs Megatron-style: ``wq`` / ``wk`` / ``wv`` /
+``wi_*`` column-parallel over heads / KV heads / ``ff``, ``wo``
+row-parallel with one all-reduce over ``model`` after it
+(``distributed/collectives.py``).  When the KV heads do not divide the
+model axis the reference replicates K/V while the Q heads stay split: a
+rank then computes every KV head and attends with those its local Q
+heads read; the serve cache holds a block of the sequence instead
+(``seq_sp``), and a decode step combines the ranks' partial softmaxes
+(flash-decoding: the maximum, then the sums, all-reduced).  The
+reference's ``shard`` constraints are called at its points and check the
+local shapes.  Without a mesh every layer runs the one-device code.
 """
 from __future__ import annotations
 
@@ -16,6 +26,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as sh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,7 +225,43 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def col_in(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated activation entering column-parallel products
+    (``copy_to``: its gradient summed over ``model``), in float32 when it
+    is a 16-bit float, so a split product rounds once, as on one
+    device."""
+    return coll.copy_to(x.float() if x.dtype in _NARROW else x, group)
+
+
+def col_mm(xc: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """``xc @ w`` (``xc`` from :func:`col_in`) in the activation dtype."""
+    return (xc @ w.to(xc.dtype)).to(dtype)
+
+
+def row_out(h: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel product, its partial sums all-reduced over
+    ``model`` (16-bit floats: computed and summed in float32, rounded
+    once)."""
+    if h.dtype in _NARROW:
+        return coll.reduce_from(h.float() @ w.float(), group).to(h.dtype)
+    return coll.reduce_from(h @ w, group)
+
+
+def _mlp_act(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        return F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    if cfg.mlp == "squared_relu":
+        return torch.square(torch.relu(x @ p["wi_up"]))
+    return F.gelu(x @ p["wi_up"], approximate="tanh")
+
+
 def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    R = sh.ranks()
+    if R is not None and R.M > 1:
+        return _mlp_tp(cfg, p, x, R)
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     elif cfg.mlp == "squared_relu":
@@ -220,6 +269,25 @@ def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:                       # jax.nn.gelu's default: the tanh form
         h = F.gelu(x @ p["wi_up"], approximate="tanh")
     return h @ p["wo"]
+
+
+def _mlp_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, R) -> torch.Tensor:
+    """The MLP on a mesh: ``wi_*`` column-parallel and ``wo`` row-parallel
+    over ``ff`` (one all-reduce), or whole on every rank when ``ff`` does
+    not divide the model axis."""
+    f = p["wo"].shape[0] * (R.M if R.split(cfg.d_ff) else 1)
+    if not R.split(f):
+        return _mlp_act(cfg, p, x) @ p["wo"]
+    xc = col_in(x, R.model_group)
+    up = col_mm(xc, p["wi_up"], x.dtype)
+    if cfg.mlp == "swiglu":
+        h = F.silu(col_mm(xc, p["wi_gate"], x.dtype)) * up
+    elif cfg.mlp == "squared_relu":
+        h = torch.square(torch.relu(up))
+    else:
+        h = F.gelu(up, approximate="tanh")
+    h = sh.shard(h, "batch", "seq", "ff", full=(None, x.shape[1], f))
+    return row_out(h, p["wo"], R.model_group)
 
 
 def mlp_init(cfg: ModelConfig, gen: torch.Generator,
@@ -254,6 +322,11 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     at its own position (ragged decode, S == 1).  The writes must lie
     inside the cache.  ``kv_override``: (k, v) of (B, Skv, KV, hd) to
     attend to instead (cross-attention: no RoPE, no mask, no cache)."""
+    R = sh.ranks()
+    if R is not None and R.M > 1:
+        return _attn_tp(cfg, p, x, positions, R, kv_cache=kv_cache,
+                        cache_len=cache_len, kv_override=kv_override,
+                        causal=causal)
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.kv_heads, cfg.hdim
     q = x @ p["wq"]
@@ -291,3 +364,180 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
         out = blockwise_attention(q, kc, vc, causal=True,
                                   q_offset=cache_len, block=cfg.attn_block)
     return out.reshape(B, S, h * hd) @ p["wo"], {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# attention on a mesh
+# ---------------------------------------------------------------------------
+
+
+def kv_heads_of_rank(cfg: ModelConfig, R) -> tuple:
+    """(kv0, kv1, split): the KV heads this model rank's Q heads read, and
+    whether the KV heads are split over ``model`` (else every rank
+    computes all of them).  The Q heads must split: a config whose heads
+    do not divide the model axis is refused."""
+    H, KV = cfg.num_heads, cfg.kv_heads
+    if not R.split(H):
+        raise NotImplementedError(
+            f"{cfg.name}: {H} attention heads on a model axis of {R.M}: the "
+            f"port splits whole heads")
+    if R.split(KV):
+        k = KV // R.M
+        return R.m * k, (R.m + 1) * k, True
+    g, hl = H // KV, H // R.M
+    if hl % g and g % hl:
+        raise NotImplementedError(
+            f"{cfg.name}: {hl} Q heads a rank in groups of {g}")
+    return (R.m * hl) // g, ((R.m + 1) * hl - 1) // g + 1, False
+
+
+def whole_columns(w: torch.Tensor, n: int, R) -> torch.Tensor:
+    """A weight whose last dimension (``n`` whole) the product needs whole
+    on every rank: gathered over ``model`` when its placement splits it
+    (backward: a rank's block, the gradient being whole on every rank)."""
+    if R.split(n) and w.shape[-1] != n:
+        return coll.gather_from(w, R.model_group, R.M, R.m, w.ndim - 1)
+    return w
+
+
+def project_kv(cfg: ModelConfig, R, x, w, b, kv: tuple, xc=None):
+    """K (or V) of the KV heads ``kv`` = (kv0, kv1, split) from input
+    ``x`` (B, S, ·): column-parallel on a split rank (from ``xc``,
+    ``col_in(x)``); else every KV head (returned second, for a cache that
+    holds them all) from the whole weight, the local heads then read
+    through ``copy_to`` (their gradient is partial on each rank)."""
+    B, S = x.shape[:2]
+    kv0, kv1, split = kv
+    hd = cfg.hdim
+    if split:
+        xc = col_in(x, R.model_group) if xc is None else xc
+        t = col_mm(xc, w, x.dtype)
+        if b is not None:
+            t = t + coll.scatter_to(b, R.model_group, R.M, R.m, 0)
+        return t.reshape(B, S, kv1 - kv0, hd), None
+    t = x @ whole_columns(w, cfg.kv_heads * hd, R)
+    if b is not None:
+        t = t + b
+    t = t.reshape(B, S, cfg.kv_heads, hd)
+    return t, t
+
+
+def _take_heads(t, kv, R):
+    kv0, kv1, split = kv
+    return t if split else coll.copy_to(t, R.model_group)[:, :, kv0:kv1]
+
+
+def _write_rows(c, new, cache_len, offset: int):
+    """Write ``new`` (B, S, ...) into cache block ``c`` (B, S_loc, ...)
+    whose first row is sequence position ``offset``: rows outside the
+    block are dropped.  ``cache_len``: an int (rows from there) or a (B,)
+    tensor (one row a slot, S == 1)."""
+    S_loc = c.shape[1]
+    if isinstance(cache_len, torch.Tensor) and cache_len.ndim:
+        rows = torch.arange(c.shape[0], device=c.device)
+        local = cache_len - offset
+        mine = (local >= 0) & (local < S_loc)
+        idx = torch.where(mine, local, torch.zeros_like(local))
+        old = c[rows, idx]
+        c[rows, idx] = torch.where(mine.reshape(-1, *([1] * (new.ndim - 2))),
+                                   new[:, 0].to(c.dtype), old)
+        return
+    lo = max(int(cache_len), offset)
+    hi = min(int(cache_len) + new.shape[1], offset + S_loc)
+    if lo < hi:
+        c[:, lo - offset:hi - offset] = new[:, lo - int(cache_len):
+                                            hi - int(cache_len)]
+
+
+def decode_attention_seq(q, k, v, kv_len, offset: int, R):
+    """``decode_attention`` over a cache whose sequence is split over
+    ``model`` (this rank holds positions [offset, offset + S_loc)), for
+    ALL Q heads: each rank's partial maximum, sum and output, then the
+    maximum and the two sums all-reduced (flash-decoding).  q: (B, 1, H,
+    D), k / v: (B, S_loc, KV, D)."""
+    B, _, H, D = q.shape
+    S_loc, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (1.0 / math.sqrt(D))
+    kpos = offset + torch.arange(S_loc, device=q.device)
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(B)
+    mask = kpos[None, :] > kv_len[:, None]
+    s = s.masked_fill(mask[:, None, None, None, :], -1e30)
+    m = coll.all_reduce_max(s.amax(dim=-1, keepdim=True), R.model_group)
+    p = torch.exp(s - m)
+    l_o = torch.cat([p.sum(dim=-1, keepdim=True),
+                     torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype),
+                                  v).float()], dim=-1)
+    l_o = coll.all_reduce_sum(l_o, R.model_group)
+    out = (l_o[..., 1:] / l_o[..., :1]).to(v.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D)
+
+
+def _attn_tp(cfg: ModelConfig, p: dict, x, positions, R, *, kv_cache=None,
+             cache_len=None, kv_override=None, causal=True):
+    """``attn_forward`` on a mesh: this rank's Q heads (``kv_override``:
+    already this rank's KV heads); the output projection row-parallel,
+    one all-reduce over ``model``."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.hdim
+    g = R.model_group
+    kv = kv_heads_of_rank(cfg, R)
+    hl = H // R.M
+    xc = col_in(x, g)
+    q = col_mm(xc, p["wq"], x.dtype)
+    if cfg.qkv_bias:
+        q = q + coll.scatter_to(p["bq"], g, R.M, R.m, 0)
+    q = q.reshape(B, S, hl, hd)
+    full_q = (None, S, H, None)
+    if kv_override is not None:
+        k, v = kv_override
+        q = sh.shard(q, "batch", "seq", "heads", None, full=full_q)
+        out = blockwise_attention(q, k, v, causal=False, block=cfg.attn_block)
+        return row_out(out.reshape(B, S, hl * hd), p["wo"], g), None
+    k, k_all = project_kv(cfg, R, x, p["wk"],
+                          p["bk"] if cfg.qkv_bias else None, kv, xc)
+    v, v_all = project_kv(cfg, R, x, p["wv"],
+                          p["bv"] if cfg.qkv_bias else None, kv, xc)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if k_all is not None:
+        k_all = rope(k_all, positions, cfg.rope_theta)
+        k = _take_heads(k_all, kv, R)
+        v = _take_heads(v_all, kv, R)
+    full_kv = (None, S, cfg.kv_heads, None)
+    q = sh.shard(q, "batch", "seq", "heads", None, full=full_q)
+    # the reference's constraints: split KV heads, or (not dividing) whole
+    sh.shard(k if kv[2] else k_all, "batch", "seq", "kv_heads", None,
+             full=full_kv)
+    sh.shard(v if kv[2] else v_all, "batch", "seq", "kv_heads", None,
+             full=full_kv)
+    if kv_cache is None:
+        out = blockwise_attention(q, k, v, causal=causal,
+                                  block=cfg.attn_block)
+    elif kv[2]:
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        _write_rows(kc, k, cache_len, 0)
+        _write_rows(vc, v, cache_len, 0)
+        out = (decode_attention(q, kc, vc, cache_len) if S == 1 else
+               blockwise_attention(q, kc, vc, causal=True,
+                                   q_offset=cache_len, block=cfg.attn_block))
+    else:
+        # KV heads that do not split: the cache holds every KV head and a
+        # block of the sequence (``init_cache`` refuses a length that the
+        # model axis does not divide)
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        offset = R.m * kc.shape[1]
+        _write_rows(kc, k_all, cache_len, offset)
+        _write_rows(vc, v_all, cache_len, offset)
+        if S == 1:
+            q_all = coll.gather_cat(q, g, R.M, 2)
+            out = decode_attention_seq(q_all, kc, vc, cache_len, offset,
+                                       R)[:, :, R.m * hl:(R.m + 1) * hl]
+        elif not isinstance(cache_len, int) or cache_len != 0:
+            raise NotImplementedError(
+                "a prefill into a sequence-split cache starts at 0")
+        else:       # the prompt's own K/V are the whole prefix
+            out = blockwise_attention(q, k, v, causal=True,
+                                      block=cfg.attn_block)
+    out = sh.shard(out, "batch", "seq", "heads", None, full=full_q)
+    return row_out(out.reshape(B, S, hl * hd), p["wo"], g), kv_cache

@@ -8,6 +8,20 @@ whatever the activation dtype, as the reference's.  Ties among router
 probabilities go to the lower expert index (``jax.lax.top_k``'s order),
 and capacity positions count (token, k) pairs in the reference's
 flattening, so the same tokens are dropped.
+
+Under a mesh (expert parallelism): a rank holds E/M experts of ``wi_*`` /
+``wo`` and the router's columns for them (``("fsdp", "experts")``).  Its
+router logits are gathered over ``model`` before the top-k, so the
+routing — top-k, the capacity positions (a cumsum over the group's
+tokens) and the kept (token, expert) pairs — is computed whole on every
+rank, as on one device; a rank then runs its experts over all tokens, and
+the combine, a partial sum over experts, takes one all-reduce over
+``model``.  When the experts do not divide the model axis the reference
+splits ``ff`` instead (each expert column-/row-parallel, the same
+all-reduce).  When the batch is split over ``data`` the dispatch groups
+span the ranks' rows, so a rank gathers the group's tokens over the
+batch axes first (backward: a reduce-scatter) and keeps its own rows of
+the output; the aux loss is then the global batch's on every rank.
 """
 from __future__ import annotations
 
@@ -16,7 +30,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as sh
+from repro_torch.models.common import ModelConfig, col_in, dense_init
 
 GROUP = 4096      # tokens per dispatch group
 
@@ -40,6 +56,9 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, d) -> (y, aux_loss)."""
+    R = sh.ranks()
+    if R is not None and (R.M > 1 or (R.D > 1 and sh.is_batch_split())):
+        return _moe_mesh(cfg, p, x, R)
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -84,3 +103,92 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     density_proxy = probs.mean(dim=(0, 1))
     aux = E * torch.sum(density * density_proxy)
     return y.reshape(B, S, d), aux
+
+
+def _routing(cfg: ModelConfig, probs: torch.Tensor, g: int):
+    """top-k, the renormalized gates, the capacity, the dispatch and
+    combine tensors of one routing (G, g, E), as ``moe_forward``."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    G = probs.shape[0]
+    gate_vals, expert_idx = _top_k(probs, k)                     # (G, g, k)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+    cap = max(int(math.ceil(g * k / E * cfg.capacity_factor)), 1)
+    onehot = F.one_hot(expert_idx, E)                            # (G, g, k, E)
+    flat = onehot.reshape(G, g * k, E)
+    pos = torch.cumsum(flat, dim=1) - flat                       # (G, g·k, E)
+    pos = (pos * flat).sum(-1).reshape(G, g, k)                  # (G, g, k)
+    keep = pos < cap
+    gate_vals = gate_vals * keep.to(gate_vals.dtype)
+    pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
+    return expert_idx, onehot, pos_oh, gate_vals
+
+
+def _moe_mesh(cfg: ModelConfig, p: dict, x: torch.Tensor, R):
+    """``moe_forward`` on a mesh (module docstring)."""
+    B, S, d = x.shape
+    E = cfg.num_experts
+    gm = R.model_group
+    split_rows = R.D > 1 and sh.is_batch_split()
+    if split_rows:       # the dispatch groups span the ranks' rows
+        x = coll.gather_fsdp(x, R.batch_group, R.D, R.d, 0)
+    Bg = x.shape[0]
+    T = Bg * S
+    g = min(GROUP, T)
+    if T % g:
+        raise ValueError(f"{T} tokens do not split into groups of {g}")
+    G = T // g
+    xt = x.reshape(G, g, d)
+    xt = sh.shard(xt, "batch", None, None, full=(None, g, d))
+    es = R.split(E)                         # experts over model
+    fs = not es and R.split(cfg.d_ff)       # else each expert's ff
+    xc = col_in(xt, gm) if es or fs else xt
+    if es:
+        logits = coll.gather_from(xc.float() @ p["router"], gm, R.M, R.m, 2)
+    else:
+        logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    expert_idx, onehot, pos_oh, gate_vals = _routing(cfg, probs, g)
+    disp = torch.einsum("gtke,gtkc->gtec", onehot.to(xt.dtype),
+                        pos_oh.to(xt.dtype))
+    comb = torch.einsum("gtke,gtkc,gtk->gtec", onehot.float(),
+                        pos_oh.float(), gate_vals.float()).to(xt.dtype)
+    if es or fs:
+        comb = coll.copy_to(comb.to(xc.dtype), gm)
+    if es:
+        e = R.part(E)
+        disp, comb = disp[:, :, e], comb[:, :, e]
+
+    xe = torch.einsum("gtd,gtec->gecd", xc,
+                      disp.to(xc.dtype)).to(xt.dtype)            # (G, El, C, d)
+    xe = sh.shard(xe, "batch", "experts", None, None,
+                  full=(None, E, None, d) if es else None)
+    if cfg.mlp == "swiglu":
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wi_gate"])) \
+            * torch.einsum("gecd,edf->gecf", xe, p["wi_up"])
+    else:
+        h = torch.square(torch.relu(
+            torch.einsum("gecd,edf->gecf", xe, p["wi_up"])))
+    h = sh.shard(h, "batch", "experts", None, "ff",
+                 full=(None, E, None, cfg.d_ff) if es or fs else None)
+    if fs:              # each expert's ff split: partial sums in float32
+        ye = torch.einsum("gecf,efd->gecd", h.to(xc.dtype),
+                          p["wo"].to(xc.dtype))
+    else:
+        ye = torch.einsum("gecf,efd->gecd", h, p["wo"])          # (G, El, C, d)
+    ye = sh.shard(ye, "batch", "experts", None, None,
+                  full=(None, E, None, d) if es else None)
+    if es or fs:        # a partial sum over experts (or ff), all-reduced
+        y = coll.reduce_from(torch.einsum("gecd,gtec->gtd",
+                                          ye.to(xc.dtype), comb), gm)
+        y = y.to(xt.dtype)
+    else:
+        y = torch.einsum("gecd,gtec->gtd", ye, comb)
+    y = y.reshape(Bg, S, d)
+    if split_rows:
+        y = y[R.d * B:(R.d + 1) * B]
+
+    density = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
+    density_proxy = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(density * density_proxy)
+    return y, aux

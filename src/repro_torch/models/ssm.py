@@ -8,13 +8,26 @@ decode recurrence, with ``lax.scan``, the port with a Python loop.  The
 decode state is O(1) in sequence length: ``h`` (B, H, hd, n) and the
 convolution's last K−1 inputs ``conv`` (B, K−1, C).  ``a_log``,
 ``dt_bias`` and ``d_skip`` stay float32 whatever the activation dtype.
+
+Under a mesh the heads split over ``model``.  ``in_proj`` packs its
+output as z | x | B | C | dt, which an even column split does not line
+up with: a rank holds its heads' part of z, x and dt and the whole of B
+and C (one group), the packed layout ``distributed/sharding.py`` calls
+``segments`` (``in_proj``, ``conv_w`` and the cache's ``conv``: x | B |
+C).  Every rank computes B and C, read by its heads only, so their
+weights' gradients are summed over ``model`` (``collectives.copy_to``).
+The norm over the d_in channels sums its squares over ``model``;
+``out_proj`` is row-parallel, one all-reduce.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, dense_init, rmsnorm
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as sh
+from repro_torch.models.common import (ModelConfig, col_in, col_mm,
+                                       dense_init, rmsnorm, row_out)
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -72,6 +85,9 @@ def ssm_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, state=None):
     (prefill into a cache, decode), or None for the chunked form over a
     whole sequence.  Returns (y, new_state), new_state None without a
     state."""
+    R = sh.ranks()
+    if R is not None and R.M > 1:
+        return _ssm_tp(cfg, p, x, R, state)
     B, S, _ = x.shape
     d_in, nheads, nstate = ssm_dims(cfg)
     hd = cfg.ssm_head_dim
@@ -88,6 +104,17 @@ def ssm_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, state=None):
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
     a = -torch.exp(p["a_log"])                                    # (H,)
     dA = dt * a                                                   # (B,S,H)
+    y, new_state = _scan(cfg, xs, Bmat, Cmat, dA, dt, state, conv_state)
+    y = y + xs * p["d_skip"][None, None, :, None].to(y.dtype)
+    y = y.reshape(B, S, d_in)
+    y = rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    return y @ p["out_proj"], new_state
+
+
+def _scan(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt, state, conv_state):
+    """The SSD over (B, S, H, hd): the recurrence from ``state["h"]``, or
+    the chunked form without a state.  Returns (y, new_state)."""
+    S = xs.shape[1]
 
     if state is not None:
         # the reference's lax.scan over tokens
@@ -105,11 +132,80 @@ def ssm_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, state=None):
     else:
         y = _ssd_chunked(cfg, xs, Bmat, Cmat, dA, dt)
         new_state = None
+    return y, new_state
 
-    y = y + xs * p["d_skip"][None, None, :, None].to(y.dtype)
-    y = y.reshape(B, S, d_in)
-    y = rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], new_state
+
+def packed_segments(cfg: ModelConfig, leaf: str) -> tuple:
+    """The packed dimension's segments ((size, split over heads), ...) of
+    ``in_proj`` (z | x | B | C | dt) or ``conv_w`` / the cache's ``conv``
+    (x | B | C)."""
+    d_in, nheads, nstate = ssm_dims(cfg)
+    xbc = ((d_in, True), (nstate, False), (nstate, False))
+    if leaf == "in_proj":
+        return ((d_in, True),) + xbc + ((nheads, True),)
+    return xbc
+
+
+def _packed(w, cfg: ModelConfig, leaf: str, R) -> torch.Tensor:
+    """A rank's compute block of a packed leaf along its last dimension:
+    its heads' part of each split segment, the whole of each replicated
+    one read through ``copy_to``.  ``w`` is the rank's placement block
+    (segmented when the placement splits the dimension) or the whole
+    leaf."""
+    segs = packed_segments(cfg, leaf)
+    g, dim = R.model_group, w.ndim - 1
+    whole = w.shape[-1] == sum(size for size, _ in segs)
+    parts = w.split([size if whole or not split else size // R.M
+                     for size, split in segs], dim)
+    return torch.cat(
+        [(coll.scatter_to(t, g, R.M, R.m, dim) if whole else t) if split
+         else coll.copy_to(t, g) for t, (_, split) in zip(parts, segs)],
+        dim=dim)
+
+
+def _ssm_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, R, state):
+    """``ssm_forward`` on a mesh: this rank's heads (module docstring)."""
+    B, S, _ = x.shape
+    d_in, nheads, nstate = ssm_dims(cfg)
+    hd = cfg.ssm_head_dim
+    if not R.split(nheads):
+        raise NotImplementedError(
+            f"{cfg.name}: {nheads} SSM heads on a model axis of {R.M}")
+    g = R.model_group
+    Hl, dl = nheads // R.M, d_in // R.M
+
+    def heads(t):           # a replicated (H,)-vector's block
+        return coll.scatter_to(t, g, R.M, R.m, 0)
+
+    zxbcdt = col_mm(col_in(x, g), _packed(p["in_proj"], cfg, "in_proj", R),
+                    x.dtype)
+    z, xs, Bmat, Cmat, dt = torch.split(
+        zxbcdt, [dl, dl, nstate, nstate, Hl], dim=-1)
+    conv_in = torch.cat([xs, Bmat, Cmat], dim=-1)
+    conv_b = torch.cat([heads(p["conv_b"][:d_in]),
+                        coll.copy_to(p["conv_b"][d_in:], g)])
+    if state is not None and state["conv"].shape[-1] != dl + 2 * nstate:
+        raise NotImplementedError(
+            f"{cfg.name}: a conv cache of {state['conv'].shape[-1]} channels"
+            f" a rank: the cache's channels must split over the model axis")
+    conv_out, conv_state = _causal_conv(
+        conv_in, _packed(p["conv_w"], cfg, "conv_w", R), conv_b,
+        None if state is None else state["conv"])
+    conv_out = F.silu(conv_out)
+    xs, Bmat, Cmat = torch.split(conv_out, [dl, nstate, nstate], dim=-1)
+    xs = xs.reshape(B, S, Hl, hd)
+    xs = sh.shard(xs, "batch", "seq", "heads", None,
+                  full=(None, S, nheads, hd))
+    dt = F.softplus(dt.float() + heads(p["dt_bias"]))             # (B,S,Hl)
+    dA = dt * -torch.exp(heads(p["a_log"]))
+    y, new_state = _scan(cfg, xs, Bmat, Cmat, dA, dt, state, conv_state)
+    y = y + xs * heads(p["d_skip"])[None, None, :, None].to(y.dtype)
+    y = (y.reshape(B, S, dl) * F.silu(z)).float()
+    # rmsnorm over all d_in channels: the squares summed over model
+    ms = coll.sum_over(torch.sum(y * y, dim=-1, keepdim=True), g) / d_in
+    y = y * torch.rsqrt(ms + cfg.norm_eps)
+    y = (y * heads(p["norm_w"]).float()).to(x.dtype)
+    return row_out(y, p["out_proj"], g), new_state
 
 
 def _ssd_chunked(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt):

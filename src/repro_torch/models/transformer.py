@@ -22,6 +22,25 @@ Public entry points:
 With ``cfg.remat`` and grad enabled, ``forward`` recomputes each block in
 the backward pass (``torch.utils.checkpoint``), as the reference wraps
 its scanned block in ``jax.checkpoint``; the values are the same.
+
+Under a mesh (the current rules of ``distributed/sharding.py``) the
+parameters and the cache are a rank's blocks
+(``train_step.param_shardings``, ``serve.engine.cache_shardings``):
+``init_params`` draws the whole tree from the generator, as on one
+device, and keeps the rank's blocks; ``init_cache`` makes the rank's
+blocks.  Before a block runs, its leaves split over ``fsdp`` (data) are
+gathered (ZeRO-3; inside the remat, so the backward gathers again).
+``embed`` is a vocab-parallel lookup (ids outside the rank's rows
+masked, then one all-reduce over ``model``); ``_logits`` multiplies by
+the rank's vocabulary columns (the tied ``embed`` the same slice) and
+gathers the logits over ``model`` (backward: a rank's block), so serving
+and the loss see every logit: the loss gathers (B, S, V) float32 logits
+rather than computing a vocab-parallel cross-entropy (4 × 512 × 92544 ×
+4 B = 758 MB a rank at ``internlm2-1.8b``, the one-device path's own
+size).  With the batch split over the batch axes (``sharding.
+batch_split``), ``train_loss`` divides by the global token count and the
+aux loss by the data ranks, so the sum over data ranks is the one-device
+loss.
 """
 from __future__ import annotations
 
@@ -29,11 +48,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ckks import resolve_device
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, attn_forward, attn_init,
                                        dense_init, mlp_forward, mlp_init,
                                        rmsnorm)
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 # ---------------------------------------------------------------------------
@@ -128,8 +150,12 @@ def _block_forward(cfg: ModelConfig, p: dict, x, positions, *, frontend=None,
     if "cross" in p and frontend is not None:
         B = x.shape[0]
         fe = frontend.to(p["kx"].dtype)
-        kx = (fe @ p["kx"]).reshape(B, -1, cfg.kv_heads, cfg.hdim)
-        vx = (fe @ p["vx"]).reshape(B, -1, cfg.kv_heads, cfg.hdim)
+        R = sh.ranks()
+        if R is not None and R.M > 1:
+            kx, vx = _cross_kv(cfg, p, fe, R)
+        else:
+            kx = (fe @ p["kx"]).reshape(B, -1, cfg.kv_heads, cfg.hdim)
+            vx = (fe @ p["vx"]).reshape(B, -1, cfg.kv_heads, cfg.hdim)
         h, _ = attn_forward(cfg, p["cross"],
                             rmsnorm(x, p["cross"]["ln"], cfg.norm_eps),
                             positions, kv_override=(kx, vx))
@@ -142,14 +168,82 @@ def _block_forward(cfg: ModelConfig, p: dict, x, positions, *, frontend=None,
     return x, aux
 
 
+def _cross_kv(cfg: ModelConfig, p: dict, fe, R):
+    """The vlm's cross-attention K/V from the frontend on a mesh: the KV
+    heads this rank's Q heads read (``kx`` / ``vx`` are over
+    ``kv_heads``)."""
+    from repro_torch.models.common import kv_heads_of_rank, project_kv
+    kv = kv_heads_of_rank(cfg, R)
+    out = []
+    for w in (p["kx"], p["vx"]):
+        t, t_all = project_kv(cfg, R, fe, w, None, kv)
+        out.append(t if t_all is None else
+                   coll.copy_to(t_all, R.model_group)[:, :, kv[0]:kv[1]])
+    return out
+
+
+def _block_call(cfg: ModelConfig, lp: dict, pl, x, positions, **kw):
+    """``_block_forward`` after the block's ``fsdp`` leaves are gathered
+    (``pl``: the block's placements, None without a mesh)."""
+    return _block_forward(cfg, sh.gather_params(lp, pl), x, positions, **kw)
+
+
+def _placements(cfg: ModelConfig):
+    """The parameters' placements under the current rules (None without
+    a mesh), cached per (config, rules)."""
+    rules = sh.get_rules()
+    if rules.mesh is None:
+        return None
+    key = (cfg, id(rules))
+    if key not in _PLACEMENTS:
+        from repro_torch.train.train_step import param_shardings
+        _PLACEMENTS.clear()
+        _PLACEMENTS[key] = (rules, param_shardings(cfg, abstract_params(cfg),
+                                                   rules))
+    return _PLACEMENTS[key][1]
+
+
+_PLACEMENTS: dict = {}
+
+
+def _top(params: dict, pl, name: str):
+    """A top-level leaf gathered over ``fsdp``."""
+    return sh.gather_params(params[name], None if pl is None else pl[name])
+
+
+def _block_pl(pl):
+    return None if pl is None else pl["layers"][0]
+
+
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The whole parameter tree's shapes and dtypes as ``meta`` tensors
+    (nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        p = _init_whole(cfg, torch.Generator())
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), p)
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random weights drawn from ``gen`` on its device: the embedding,
-    then the ``nb`` blocks in order, then the head."""
+    then the ``nb`` blocks in order, then the head.  Under a mesh the
+    whole tree is drawn, as on one device, and a rank keeps its blocks
+    (``param_shardings``)."""
+    p = _init_whole(cfg, gen)
+    pl = _placements(cfg)
+    if pl is None:
+        return p
+    return unflatten(p, [q.local(t) for t, q in zip(leaves(p), leaves(pl),
+                                                      strict=True)])
+
+
+def _init_whole(cfg: ModelConfig, gen: torch.Generator) -> dict:
     nb, _ = _block_structure(cfg)
     p = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.adtype),
          "layers": [_layer_init(cfg, gen) for _ in range(nb)],
@@ -171,13 +265,47 @@ def _embed(cfg, params, tokens=None, embeds=None):
     to the activation dtype."""
     if embeds is not None:
         return embeds.to(cfg.adtype)
-    return params["embed"][tokens]
+    R = sh.ranks()
+    if R is None:
+        return params["embed"][tokens]
+    embed = _top(params, _placements(cfg), "embed")
+    if not R.split(cfg.vocab_size):
+        x = embed[tokens]
+    else:               # vocab-parallel: this rank's rows, then a sum
+        lo = R.m * embed.shape[0]
+        ids = tokens - lo
+        mine = (ids >= 0) & (ids < embed.shape[0])
+        x = embed[torch.where(mine, ids, torch.zeros_like(ids))]
+        x = coll.reduce_from(x * mine[..., None].to(x.dtype), R.model_group)
+    return sh.shard(x, "batch", "seq", None, full=(None, x.shape[1],
+                                                    cfg.d_model))
+
+
+def embed_rows(cfg: ModelConfig, params: dict, ids: torch.Tensor):
+    """Whole embedding rows of token ``ids`` (any shape) on every rank."""
+    return _embed(cfg, params, ids.reshape(1, -1)).reshape(
+        *ids.shape, cfg.d_model)
 
 
 def _logits(cfg, params, x):
+    R = sh.ranks()
+    if R is None:
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return (x @ head).float()
+    pl = _placements(cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float()
+    head = (_top(params, pl, "embed").T if cfg.tie_embeddings
+            else _top(params, pl, "lm_head"))
+    if not R.split(cfg.vocab_size):
+        logits = (x @ head).float()
+    else:
+        from repro_torch.models.common import col_in, col_mm
+        logits = col_mm(col_in(x, R.model_group), head, x.dtype).float()
+    logits = sh.shard(logits, "batch", "seq", "vocab",
+                      full=(None, x.shape[1], cfg.vocab_size))
+    return coll.gather_from(logits, R.model_group, R.M, R.m, 2) \
+        if R.split(cfg.vocab_size) else logits
 
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, *, embeds=None,
@@ -190,13 +318,14 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, *, embeds=None,
     x = _embed(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
+    bpl = _block_pl(_placements(cfg))
     aux = 0.0
     for lp in params["layers"]:
         if remat:
-            x, a = checkpoint(_block_forward, cfg, lp, x, positions,
+            x, a = checkpoint(_block_call, cfg, lp, bpl, x, positions,
                               frontend=frontend, use_reentrant=False)
         else:
-            x, a = _block_forward(cfg, lp, x, positions, frontend=frontend)
+            x, a = _block_call(cfg, lp, bpl, x, positions, frontend=frontend)
         aux = aux + a
     return _logits(cfg, params, x), aux
 
@@ -213,6 +342,9 @@ def train_loss(cfg: ModelConfig, params, batch):
     mask = batch.get("mask")
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    R = sh.ranks()
+    if R is not None and R.D > 1 and sh.is_batch_split():
+        return _split_loss(nll, tgt, mask, aux, R)
     if mask is not None:
         nll = nll * mask
         denom = torch.clamp_min(mask.sum(), 1.0)
@@ -222,6 +354,27 @@ def train_loss(cfg: ModelConfig, params, batch):
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux,
+                   "ppl_proxy": torch.exp(torch.clamp_max(loss, 20.0))}
+
+
+def _split_loss(nll, tgt, mask, aux, R):
+    """``train_loss`` on a rank's rows of the batch: the masked NLL sum
+    over the global count, plus 0.01 × aux / D (every data rank holds the
+    global batch's aux), so the ranks' totals sum to the one-device total
+    (the gradients are summed over the batch axes).  The metrics are the
+    global ones."""
+    g = R.batch_group
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp_min(
+            coll.all_reduce_sum(mask.sum().float().reshape(1), g)[0], 1.0)
+    else:
+        denom = float(tgt.numel() * R.D)
+    local = nll.sum() / denom
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=local.device)
+    total = local + 0.01 * aux / R.D
+    loss = coll.all_reduce_sum(local.detach().reshape(1), g)[0]
+    return total, {"loss": loss, "aux_loss": aux.detach(),
                    "ppl_proxy": torch.exp(torch.clamp_max(loss, 20.0))}
 
 
@@ -237,6 +390,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     layers; CUDA unless ``device`` says otherwise."""
     nb, plan = _block_structure(cfg)
     dev = resolve_device(device)
+    if sh.get_rules().mesh is not None:
+        return _init_cache_mesh(cfg, batch, max_len, dev)
     c = {}
     if plan["attn"]:
         shape = (nb, plan["attn"], batch, max_len, cfg.kv_heads, cfg.hdim)
@@ -249,14 +404,63 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return c
 
 
+def cache_placements(cfg: ModelConfig, batch: int, max_len: int):
+    """The serve cache's placements under the current rules (None without
+    a mesh): ``serve.engine.cache_shardings`` of its whole shapes."""
+    rules = sh.get_rules()
+    if rules.mesh is None:
+        return None
+    from repro_torch.serve.engine import cache_shardings
+    return cache_shardings(rules, _cache_shapes(cfg, batch, max_len),
+                           cfg=cfg)
+
+
+def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    nb, plan = _block_structure(cfg)
+    c = {}
+    if plan["attn"]:
+        shape = (nb, plan["attn"], batch, max_len, cfg.kv_heads, cfg.hdim)
+        c["kv"] = {n: torch.empty(shape, dtype=cfg.adtype, device="meta")
+                   for n in ("k", "v")}
+    if plan["ssm"]:
+        st = ssm_mod.ssm_init_state(cfg, batch, cfg.adtype, "meta")
+        c["ssm"] = {n: torch.empty((nb, plan["ssm"]) + t.shape,
+                                   dtype=cfg.adtype, device="meta")
+                    for n, t in st.items()}
+    return c
+
+
+def _init_cache_mesh(cfg: ModelConfig, batch: int, max_len: int, dev):
+    """A rank's blocks of the zeroed serve cache.  A cache whose KV heads
+    do not split over ``model`` holds a block of the sequence, which the
+    model axis must divide."""
+    R = sh.ranks()
+    shapes = _cache_shapes(cfg, batch, max_len)
+    pl = cache_placements(cfg, batch, max_len)
+    if "kv" in shapes and R.M > 1 and not R.split(cfg.kv_heads) \
+            and not R.split(max_len):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.kv_heads} KV heads and a cache of {max_len} "
+            f"positions on a model axis of {R.M}: the port splits the cache's"
+            f" sequence, which must divide")
+    cache = {g: {n: torch.zeros(pl[g][n].local_shape(t.shape), dtype=t.dtype,
+                                device=dev) for n, t in tree.items()}
+             for g, tree in shapes.items()}
+    for n, c in cache.get("kv", {}).items():     # the reference's constraint
+        sh.shard(c, "layers", None, "batch", None, "kv_heads", None,
+                 full=(None, None, batch, None, cfg.kv_heads, None))
+    return cache
+
+
 def _serve_scan(cfg, params, x, positions, cache, cache_len, frontend=None):
     """The reference's ``lax.scan`` over blocks as a Python loop; block b
     reads and writes ``cache[...][b]`` in place."""
+    bpl = _block_pl(_placements(cfg))
     for b, lp in enumerate(params["layers"]):
         lc = {g: {n: c[b] for n, c in tree.items()}
               for g, tree in cache.items()}
-        x, _ = _block_forward(cfg, lp, x, positions, cache=lc,
-                              cache_len=cache_len, frontend=frontend)
+        x, _ = _block_call(cfg, lp, bpl, x, positions, cache=lc,
+                           cache_len=cache_len, frontend=frontend)
     return x, cache
 
 

@@ -14,9 +14,22 @@ runs where its parameters lie).
 
 ``ServeConfig(he_mesh=)`` (a ``launch/mesh.py`` mesh) goes to the secure
 tier's contexts: its programs may run ``"sharded"`` over the mesh's
-ranks.  Not ported yet: the LM's tensor parallelism,
-``make_sharded_serve_steps`` and ``cache_shardings`` (the LM half of the
-multi-device schedule).
+ranks.
+
+On a mesh (the current rules of ``distributed/sharding.py``) the model
+runs on a rank's blocks (``models/``) and the cache holds a rank's blocks
+of ``cache_shardings``: the batch over the batch axes, the KV heads over
+``model`` (or the sequence, ``seq_sp``, when they do not divide it), the
+SSM state's heads and the conv channels (packed x | B | C) over
+``model``.  ``make_sharded_serve_steps`` returns prefill and decode
+steps over that layout.  ``ContinuousBatcher`` runs the same ``step()``
+on every rank: a one-request prefill runs whole on every data rank and
+the rank holding the slot keeps it; a decode step runs each data rank's
+slots, and the logits are gathered over ``model`` (the vocabulary) and
+the batch axes, so every rank samples the same tokens from the same
+seeded rng (a token that differed would hang the next collective).  With
+``ServeConfig(he_mesh=)`` set to the LM's own mesh the secure flush runs
+the sharded HLT on the same ranks.
 """
 from __future__ import annotations
 
@@ -27,6 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.params import toy_params
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.secure import SecureLinear, SecureMatmulEngine
@@ -131,6 +146,115 @@ def serve_decode_step(cfg: ModelConfig, params, token, cache, pos):
     return tf.decode_step(cfg, params, token, cache, pos)
 
 
+def _gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """A batch-split tensor's rows from every data rank (``t`` itself off
+    a mesh or outside a batch split)."""
+    R = sh.ranks()
+    if R is None or R.D == 1:
+        return t
+    return coll.gather_cat(t, R.batch_group, R.D, 0)
+
+
+def _local_rows(t, batch: int):
+    R = sh.ranks()
+    if R is None or R.D == 1 or batch % R.D:
+        return t
+    per = batch // R.D
+    return t[R.d * per:(R.d + 1) * per]
+
+
+def make_sharded_serve_steps(cfg: ModelConfig, mesh, params_shapes,
+                             batch: int, max_len: int):
+    """Prefill and decode steps on ``mesh`` (the current rules' mesh) for
+    a cache of ``batch`` × ``max_len``: ``prefill(params, tokens, cache)``
+    and ``decode(params, token, cache, pos)`` take the global tokens (and
+    positions), run the rank's rows (when the batch axes divide
+    ``batch``) on the rank's blocks, write the rank's cache blocks in
+    place and return every logit on every rank; and the cache's
+    placements.  ``params_shapes`` is checked against
+    ``param_shardings``."""
+    from repro_torch.train.train_step import param_shardings
+    from repro_torch.tree import leaves, leaves_with_paths
+    rules = sh.get_rules()
+    if rules.mesh is not mesh:
+        raise ValueError("install the mesh's rules first: "
+                         "sharding.set_rules(sharding.make_rules(mesh))")
+    whole = tf.abstract_params(cfg)
+    want = param_shardings(cfg, whole, rules)
+    for (path, t), w, q in zip(leaves_with_paths(params_shapes),
+                               leaves(whole), leaves(want), strict=True):
+        if tuple(t.shape) != q.local_shape(w.shape):
+            raise ValueError(f"{'/'.join(map(str, path))}: {tuple(t.shape)}"
+                             f" on this rank, its placement gives "
+                             f"{q.local_shape(w.shape)}")
+    cache_sh = tf.cache_placements(cfg, batch, max_len)
+    R = sh.ranks(rules)
+    split = R.D > 1 and batch % R.D == 0
+
+    def prefill(params, tokens, cache):
+        with sh.batch_split(split):
+            logits, cache = serve_prefill_step(
+                cfg, params, _local_rows(tokens, batch), cache)
+            return (_gather_rows(logits) if split else logits), cache
+
+    def decode(params, token, cache, pos):
+        if isinstance(pos, torch.Tensor) and pos.ndim:
+            pos = _local_rows(pos, batch)
+        with sh.batch_split(split):
+            logits, cache = serve_decode_step(
+                cfg, params, _local_rows(token, batch), cache, pos)
+            return (_gather_rows(logits) if split else logits), cache
+
+    return prefill, decode, cache_sh
+
+
+def cache_shardings(rules, cache_shapes, seq_shard_kv: bool = False,
+                    cfg: Optional[ModelConfig] = None):
+    """Path-aware cache placements (divisibility-checked), the
+    reference's rules:
+      kv k/v (nb, sub, B, S, KV, hd): batch over data; kv_heads over model,
+        falling back to sequence-sharded KV (SP) when KV doesn't divide;
+      ssm h (nb, sub, B, H, hd, n): heads over model;
+      ssm conv (nb, sub, B, K-1, C): channels over model (with ``cfg``, by
+        the packed x | B | C segments, ``models/ssm.py``).
+
+    seq_shard_kv=True additionally shards the KV sequence over the
+    ``seq_data`` logical axis (unmapped by the default rules).  Returns a
+    tree of Placements (None leaves without a mesh)."""
+    from repro_torch.distributed.sharding import (logical_axis_size,
+                                                  sanitize_spec)
+    from repro_torch.models.ssm import packed_segments
+    from repro_torch.tree import leaves_with_paths, unflatten
+
+    def to_sh(path, leaf):
+        dims = tuple(leaf.shape)
+        segments = None
+        if "kv" in path:
+            spec = [None, None, "batch", None, "kv_heads", None]
+            if dims[4] % logical_axis_size(rules, "kv_heads") != 0:
+                spec[4] = None
+                spec[3] = "seq_sp"           # shard the KV sequence instead
+            elif seq_shard_kv:
+                spec[3] = "seq_data"         # data axis; heads keep model
+        elif path[-1] == "h":
+            spec = [None, None, "batch", "heads", None, None][: leaf.ndim]
+        elif path[-1] == "conv":
+            spec = [None, None, "batch", None, "ff"]
+            if cfg is not None:
+                segments = (4, packed_segments(cfg, "conv_w"))
+        else:
+            spec = [None] * leaf.ndim
+        logical = sanitize_spec(rules, spec, dims)
+        if segments is not None and logical[4] is None:
+            segments = None
+        if rules.mesh is None:
+            return None
+        return rules.sharding(*logical, segments=segments)
+
+    return unflatten(cache_shapes, [to_sh(path, leaf) for path, leaf
+                                    in leaves_with_paths(cache_shapes)])
+
+
 class ContinuousBatcher:
     """Host-side continuous batching: fixed device batch of slots; finished
     sequences are replaced by queued requests between decode steps.
@@ -158,6 +282,12 @@ class ContinuousBatcher:
         self.device = params["embed"].device
         self.cache = tf.init_cache(cfg, scfg.max_batch, scfg.max_len,
                                    device=self.device)
+        R = sh.ranks()
+        # on a mesh, the batch axes hold the slots when they divide them
+        self._split = (R is not None and R.D > 1
+                       and scfg.max_batch % R.D == 0)
+        self._per = scfg.max_batch // R.D if self._split else scfg.max_batch
+        self._first = R.d * self._per if self._split else 0
         self.slots: list[Optional[dict]] = [None] * scfg.max_batch
         self.queue: list[dict] = []
         self.results: dict[int, list[int]] = {}
@@ -196,9 +326,11 @@ class ContinuousBatcher:
                 prompt = torch.as_tensor(req["prompt"], device=self.device)
                 logits, cache1 = tf.prefill(self.cfg, self.params,
                                             prompt[None], cache1)
-                for g, tree in self.cache.items():   # kv and ssm leaves
-                    for name, c in tree.items():
-                        c[:, :, i:i + 1].copy_(cache1[g][name])
+                j = i - self._first          # the slot on this rank
+                if 0 <= j < self._per:
+                    for g, tree in self.cache.items():   # kv and ssm leaves
+                        for name, c in tree.items():
+                            c[:, :, j:j + 1].copy_(cache1[g][name])
                 tok = self._sample(logits[0, -1].cpu().numpy())
                 self.results[req["id"]].append(tok)
                 req["pos"] = req["prompt"].shape[0]
@@ -212,7 +344,11 @@ class ContinuousBatcher:
         from bf16 and f32)."""
         last = torch.tensor([self.slots[i]["last"] for i in active],
                             device=self.device)
-        rows = self.params["embed"][last].double().cpu().numpy()
+        if sh.get_rules().mesh is None:
+            rows = self.params["embed"][last]
+        else:
+            rows = tf.embed_rows(self.cfg, self.params, last)
+        rows = rows.double().cpu().numpy()
         for i, x in zip(active, rows):
             s = self.slots[i]
             for layer in self.cfg.secure_layers:
@@ -241,9 +377,17 @@ class ContinuousBatcher:
         for i in active:
             toks[i, 0] = self.slots[i]["last"]
             pos[i] = self.slots[i]["pos"]
-        logits, self.cache = tf.decode_step(
-            self.cfg, self.params, torch.as_tensor(toks, device=self.device),
-            self.cache, torch.as_tensor(pos, device=self.device))
+        toks = torch.as_tensor(toks, device=self.device)
+        pos = torch.as_tensor(pos, device=self.device)
+        if self._split:
+            rows = slice(self._first, self._first + self._per)
+            with sh.batch_split():
+                logits, self.cache = tf.decode_step(
+                    self.cfg, self.params, toks[rows], self.cache, pos[rows])
+                logits = _gather_rows(logits)
+        else:
+            logits, self.cache = tf.decode_step(self.cfg, self.params, toks,
+                                                self.cache, pos)
         logits = logits[:, 0].cpu().numpy()
         for i in active:
             s = self.slots[i]

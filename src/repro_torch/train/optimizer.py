@@ -11,6 +11,13 @@ leaf, and writes the result into the state's and the parameters' own
 tensors: the reference's launcher jits its step with the state donated
 (``donate_argnums=(0,)``), so no second copy of the float32 master, m
 and v (22.7 GB at ``internlm2-1.8b``) is made here either.
+
+On a mesh (``placements`` given) a leaf is a rank's block: the global
+gradient norm sums each block's squares over the axes its placement
+splits (a replicated leaf, or the replicated segments of a packed one,
+counted once), and the int8 scale of a reference leaf is the maximum
+over those axes (``collectives.all_reduce_max``), so both are the
+one-device numbers.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.tree import (leaves, leaves_with_paths, reference_path,
                               tree_map)
 
@@ -68,13 +76,27 @@ def init_opt_state(cfg: OptConfig, params) -> dict:
     return state
 
 
-def _compress_decompress(gs: list, efs: list) -> list:
+def _split_axes(pl) -> tuple:
+    """The mesh axes a placement splits (none for None)."""
+    if pl is None:
+        return ()
+    return tuple(a for ax in pl.spec for a in
+                 ((ax,) if isinstance(ax, str) else tuple(ax or ())))
+
+
+def _compress_decompress(gs: list, efs: list, pl=None) -> list:
     """int8 quantize (absmax) + error feedback residual, [(dequantized
     gradient, new residual)], over the blocks of one reference tensor:
     ``gs`` / ``efs`` are one leaf's gradient and residual, or a stacked
-    leaf's, block by block, which share the reference's one scale."""
+    leaf's, block by block, which share the reference's one scale; ``pl``
+    the blocks' placement on a mesh (the maximum is taken over its split
+    axes)."""
     gts = [g + ef for g, ef in zip(gs, efs, strict=True)]
     absmax = torch.stack([torch.max(torch.abs(gt)) for gt in gts]).max()
+    axes = _split_axes(pl)
+    if axes and pl.mesh.size(axes) > 1:
+        absmax = coll.all_reduce_max(absmax.reshape(1),
+                                     pl.mesh.group(axes))[0]
     scale = torch.clamp_min(absmax, 1e-12) / 127.0
     out = []
     for gt in gts:
@@ -84,7 +106,45 @@ def _compress_decompress(gs: list, efs: list) -> list:
     return out
 
 
-def apply_updates(cfg: OptConfig, params, grads, state):
+def _global_norm(gs: list, pls: list) -> torch.Tensor:
+    """√Σ g² over the whole tree from a rank's blocks: the squares summed
+    locally by the axes a block is split over (a packed leaf's replicated
+    segments apart), one all-reduce an axis set."""
+    buckets: dict = {}
+    for g, pl in zip(gs, pls, strict=True):
+        axes = _split_axes(pl)
+        parts = [(axes, g)]
+        if pl is not None and pl.segments is not None and axes:
+            dim, segs = pl.segments
+            seg_axes = _split_axes_of_dim(pl, dim)
+            n = pl.mesh.size(seg_axes)
+            sizes = [size // n if split else size for size, split in segs]
+            rep = tuple(a for a in axes if a not in seg_axes)
+            parts = [(axes if split else rep, t) for t, (_, split) in
+                     zip(g.split(sizes, dim), segs)]
+        for key, t in parts:
+            sq = torch.sum(torch.square(t))
+            buckets[key] = buckets[key] + sq if key in buckets else sq
+    total = 0.0
+    for key in sorted(buckets):
+        sq = buckets[key]
+        if key and pls and _mesh_of(pls).size(key) > 1:
+            mesh = _mesh_of(pls)
+            sq = coll.all_reduce_sum(sq.reshape(1), mesh.group(key))[0]
+        total = total + sq
+    return torch.sqrt(total)
+
+
+def _split_axes_of_dim(pl, dim: int) -> tuple:
+    ax = pl.spec[dim]
+    return (ax,) if isinstance(ax, str) else tuple(ax or ())
+
+
+def _mesh_of(pls: list):
+    return next(pl.mesh for pl in pls if pl is not None)
+
+
+def apply_updates(cfg: OptConfig, params, grads, state, placements=None):
     """One AdamW step from ``grads`` (a tree like ``params``, any float
     dtype).  The float32 gradients are compressed first (with
     ``compress_grads``: one int8 scale a reference tensor, so the blocks
@@ -93,8 +153,12 @@ def apply_updates(cfg: OptConfig, params, grads, state):
     ``master``, and each parameter becomes its master cast to its own
     dtype.  ``params`` and ``state`` are updated in place (module
     docstring) and returned, with ``{"grad_norm", "lr"}`` (0-d tensors;
-    the norm is the compressed gradients', before clipping)."""
+    the norm is the compressed gradients', before clipping).
+    ``placements``: the parameters' placements on a mesh (module
+    docstring), None on one device."""
     gs = [g.to(torch.float32) for g in leaves(grads)]
+    pls = (leaves(placements) if placements is not None
+           else [None] * len(gs))
     if cfg.compress_grads:
         tensors = {}        # the reference's leaf -> indices of its blocks
         for i, (path, _) in enumerate(leaves_with_paths(grads)):
@@ -102,11 +166,14 @@ def apply_updates(cfg: OptConfig, params, grads, state):
         efs = leaves(state["ef"])
         for idx in tensors.values():
             pairs = _compress_decompress([gs[i] for i in idx],
-                                         [efs[i] for i in idx])
+                                         [efs[i] for i in idx], pls[idx[0]])
             for i, (deq, residual) in zip(idx, pairs):
                 gs[i] = deq
                 efs[i].copy_(residual)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+    if placements is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+    else:
+        gnorm = _global_norm(gs, pls)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                             1.0)
 

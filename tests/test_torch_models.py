@@ -329,15 +329,21 @@ def test_configs_equal_reference(arch):
 
 
 def test_audio_train_and_mesh_raise(tmp_path):
-    """The tensor-parallel mesh is not ported: both launchers refuse
-    ``--tp 2`` (training is ported: ``tests/test_torch_train.py``; the
-    audio family's frame input too: ``tests/test_torch_families.py``)."""
-    with pytest.raises(NotImplementedError, match="multi-device schedule"):
-        launch_serve.main(["--arch", "internlm2-1.8b", "--smoke", "--tp", "2",
-                           "--device", CPU])
-    with pytest.raises(NotImplementedError, match="multi-device schedule"):
-        launch_train.main(["--arch", "internlm2-1.8b", "--smoke", "--tp", "2",
-                           "--ckpt-dir", str(tmp_path), "--device", CPU])
+    """Both launchers run ``--tp 2`` (2 spawned gloo ranks, a (data 1 ×
+    model 2) mesh): the served tokens are one device's, and a train step
+    takes one device's first loss (the audio family's frame input is
+    covered by ``tests/test_torch_families.py``)."""
+    serve = ["--arch", "internlm2-1.8b", "--smoke", "--requests", "2",
+             "--max-new", "3", "--device", CPU]
+    assert launch_serve.main(serve + ["--tp", "2"]).results == \
+        launch_serve.main(serve).results
+    train = ["--arch", "internlm2-1.8b", "--smoke", "--steps", "1",
+             "--global-batch", "2", "--seq", "16", "--device", CPU]
+    mesh = launch_train.main(train + ["--tp", "2", "--ckpt-dir",
+                                      str(tmp_path / "a")])
+    one = launch_train.main(train + ["--ckpt-dir", str(tmp_path / "b")])
+    np.testing.assert_allclose(float(mesh.metrics[0]["loss"]),
+                               float(one.metrics[0]["loss"]), rtol=1e-6)
 
 
 def test_cache_defaults_to_cuda_and_raises_without_it():

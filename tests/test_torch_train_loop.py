@@ -298,7 +298,19 @@ def test_launcher_resumes_and_matches_uninterrupted(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"],
                                    ["--production-mesh"], ["--multi-pod"]])
 def test_launcher_refuses_the_mesh(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="multi-device schedule"):
+    """The mesh flags as the reference's launcher reads them: ``--tp 2`` /
+    ``--dp 2`` train on 2 spawned gloo ranks, their first loss (the same
+    weights, the global batch) one device's; the production meshes need
+    256 / 512 ranks and refuse a lone process, naming the count."""
+    if flags[0] in ("--tp", "--dp"):
+        run = _launch(tmp_path / "mesh", "--steps", "1", *flags)
+        one = _launch(tmp_path / "one", "--steps", "1")
+        assert run.start == 0 and len(run.metrics) == 1
+        np.testing.assert_allclose(float(run.metrics[0]["loss"]),
+                                   float(one.metrics[0]["loss"]), rtol=1e-6)
+        return
+    need = "512" if flags == ["--multi-pod"] else "256"
+    with pytest.raises(RuntimeError, match=f"needs {need} ranks"):
         _launch(tmp_path, "--steps", "1", *flags)
     assert ckpt.all_steps(str(tmp_path)) == []
 
