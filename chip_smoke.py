@@ -18,7 +18,11 @@ Phases, each printing its lines before the last:
    main basis; ``baseconv`` at one digit's ModUp and the merged ModDown at
    level 15, with a count of the residues where its float32 correction
    differs from the float64 oracle ``kernels/ref.py`` ``baseconv_ref``,
-   printed as a finding) and hold its output array-equal (tolerance:
+   printed as a finding; also, weight 0, at Set-C's ModUp 11 -> 33 and
+   merged ModDown 13 -> 31 at N = 2^16, the 3 -> 4 case at N = 1001 and
+   1004, and |S| = 44 -> 4; beside it the launch floor, a one-element
+   in-place ``add_`` timed as the kernels are) and hold its output
+   array-equal (tolerance:
    exact, max_abs_err 0) against the plain PyTorch version on the same
    inputs; print the median CUDA-event time of both.  The fused HLT
    kernels also run on random permutations (the device-memory gather,
@@ -1193,10 +1197,10 @@ def baseconv_operands(eng, S, T):
 
 
 def phase_kernels_elementwise(eng, records, gen):
-    """``modmul`` / ``modadd`` and ``baseconv`` at the API's Set-B shapes
-    against their plain versions; ``baseconv`` also against the float64
-    oracle, its disagreement counted as a finding."""
-    from repro_torch.kernels import baseconv as kbc, modmul as kmm, ref
+    """``modmul`` / ``modadd`` at the API's Set-B shapes against their
+    plain versions, the launch floor of ``device_ms``, then
+    ``phase_baseconv``."""
+    from repro_torch.kernels import modmul as kmm
     N = eng.params.N
     shapes = api_shapes(eng)
     for label, idx in shapes["rows"].items():
@@ -1213,22 +1217,78 @@ def phase_kernels_elementwise(eng, records, gen):
             f"{label} M={M}", lambda: kmm.modadd_cuda(x, y, v.moduli_u32),
             lambda: kmm.modadd_plain(x, y, v.moduli_u32),
             (3 * M * N + M) * 4, 2 * M * N, reps=20, plain_reps=3)
-    for label, (S, T) in shapes["baseconv"].items():
+    floor = launch_floor_ms(eng.device)
+    log(f"[kernels] launch floor: {floor:.4f} ms on the device (a one-element "
+        f"in-place add_, captured and replayed as device_ms replays a "
+        f"kernel)")
+    phase_baseconv(eng, records, gen)
+
+
+def launch_floor_ms(device) -> float:
+    """Device ms of the least kernel: a one-element in-place ``add_``,
+    timed exactly as ``device_ms`` times a kernel."""
+    import torch
+    z = torch.zeros(1, dtype=torch.int32, device=device)
+    return device_ms(lambda: z.add_(1), cuda_ms(lambda: z.add_(1), 20))
+
+
+#: ``baseconv``'s shapes beyond the kernel API's: the reference test's
+#: 3 -> 4 case (Set-B moduli 0-2 -> 3, 4, p_0, p_1) at N that is a
+#: multiple neither of 4 nor of the tile (word by word) and a multiple of
+#: 4 but not of the tile (a partial tile of 16-byte columns), and the
+#: widest source basis the reference allows (44 -> 4)
+BASECONV_RAGGED_N = (1001, 1004)
+BASECONV_WIDE = dict(logN=10, L=43, k=4, beta=4, scale_bits=29)
+
+
+def baseconv_cases(eng) -> list:
+    """[(label, engine, S, T, N, weight)]: the kernel API's two Set-B
+    shapes on the Set-B engine ``eng`` (weight 1), then (weight 0) Set-C's
+    ModUp (11 -> 33) and merged ModDown (13 -> 31) at N = 2^16 as
+    ``api_shapes`` gives them on the Set-C engine, the 3 -> 4 case at each
+    ``BASECONV_RAGGED_N``, and |S| = 44 -> |T| = 4 at Set-B's N."""
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.params import SET_C, toy_params
+
+    p = eng.params
+    eng_c = CkksEngine(SET_C, device=eng.device)
+    eng_w = CkksEngine(toy_params(**BASECONV_WIDE), device=eng.device)
+    cases = [(label, eng, S, T, p.N, 1)
+             for label, (S, T) in api_shapes(eng)["baseconv"].items()]
+    cases += [(f"Set-C {label}", eng_c, S, T, SET_C.N, 0)
+              for label, (S, T) in api_shapes(eng_c)["baseconv"].items()]
+    cases += [("3 -> 4", eng, (0, 1, 2),
+               (3, 4, p.num_main, p.num_main + 1), n, 0)
+              for n in BASECONV_RAGGED_N]
+    wp = eng_w.params
+    cases.append(("wide", eng_w, tuple(range(wp.num_main)),
+                  tuple(range(wp.num_main, wp.num_total)), p.N, 0))
+    return cases
+
+
+def phase_baseconv(eng, records, gen) -> None:
+    """``baseconv`` against its plain version at ``baseconv_cases`` (row
+    10's sum is the API shapes', weight 1), with a count of the output
+    residues where it differs from the float64 oracle ``ref.baseconv_ref``
+    (a finding, not a gate)."""
+    from repro_torch.kernels import baseconv as kbc, ref
+    for label, e, S, T, N, weight in baseconv_cases(eng):
         ns, nt = len(S), len(T)
-        bargs = baseconv_operands(eng, S, T)
+        label = f"{label} |S|={ns} |T|={nt} N={N}"
+        bargs = baseconv_operands(e, S, T)
         x = rand_residues((ns, N), bargs[1], gen)
         records["baseconv"].add(
-            f"{label} |S|={ns} |T|={nt}", lambda: kbc.baseconv_cuda(x, *bargs),
+            label, lambda: kbc.baseconv_cuda(x, *bargs),
             lambda: kbc.baseconv_plain(x, *bargs),
             ((ns + nt) * N + 5 * ns + nt * ns + 3 * nt) * 4,
             MONTMUL_OPS * N * (ns + ns * nt + nt) + 2 * ns * N,
-            reps=20, plain_reps=3)
+            reps=20, plain_reps=3, weight=weight)
         got = kbc.baseconv_cuda(x, *bargs)
         h, q, qn, w, dm, inv, qg, qng = bargs
-        f64 = ref.baseconv_ref(x, h, w[:, :, None], dm, inv, q, qn, qg, qng)
-        diff = got != f64
-        log(f"[kernels] baseconv {label} |S|={ns} |T|={nt}: finding, not a "
-            f"gate: {int(diff.sum())} of {diff.numel()} output residues "
+        diff = got != ref.baseconv_ref(x, h, w[:, :, None], dm, inv, q, qn,
+                                       qg, qng)
+        log(f"[kernels] baseconv {label}: finding, not a gate: "
+            f"{int(diff.sum())} of {diff.numel()} output residues "
             f"({int(diff.any(dim=0).sum())} of {N} coefficients) differ from "
             f"the float64 oracle ref.baseconv_ref")
 
