@@ -223,8 +223,9 @@ Phases, each printing its lines before the last:
    ``make_sharded_serve_steps`` (prefill + 2 decode logits within 1e-3 of
    one device) and the launcher's 4 requests (tokens equal); then
    ``launch/serve.py --tp 2`` in bf16, every decode step timed by CUDA
-   events, its collectives and bytes held to the reckoned count (2
-   all-reduces a layer and the embedding's, the logits' all-gather) and
+   events, its collectives and bytes held to the reckoned count
+   (``decode_reckon``: 2 all-reduces a layer and the embedding's, the
+   logits' all-gather) and
    the host time inside them, peak memory a rank; a toy secure layer
    whose ``he_mesh`` is the LM's mesh, array-equal to one device; then
    ``launch/train.py --tp 2``: 3 steps of 4 × 512 tokens, step 1's loss
@@ -233,7 +234,32 @@ Phases, each printing its lines before the last:
    dense, MoE and SSM smoke configs in float32, serving (logits, the
    gathered cache, tokens) and 2 train steps with 2 microbatches against
    one device on ``cuda``;
-4. cpu-vs-cuda — the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
+3k. costs — the compile-time cost reports.  ``launch/dryrun.py`` runs in
+   a subprocess started with phase 3i, beside 3i–3j and phase 4 (its
+   ``"fake"`` process group never meets the gloo groups of 3i / 3j; it
+   needs no card), and is read after phase 4: ``--he set-b set-c`` and
+   ``decode_32k`` for ``internlm2-1.8b``, ``granite-moe-3b-a800m`` (24
+   heads on a model axis of 16: replicated attention),
+   ``mamba2-780m``, ``zamba2-2.7b`` and ``musicgen-large`` on the pod
+   mesh (256 fake ranks, fake tensors on ``cuda``); every record must
+   be ``ok``, and an HE record's collective bytes the sharded plan's
+   reckoning for a rank's share × chips; each record's dominant term,
+   its three roofline terms (data-sheet seconds) and ``compile_s`` are
+   printed.  Then, with both subprocesses ended, the same counter over
+   ``internlm2-1.8b``'s bf16 decode step at phase 3f's shapes on the
+   card, on real CUDA tensors
+   and on fake tensors of the same shapes: equal dot FLOPs (the bytes
+   printed beside each other), and the counts over the median step time
+   (CUDA events) beside ``hlo_analysis.HW`` and the card's name and
+   power limit.  And phase 3i's ranks' ``sharded_collectives`` of the
+   Set-B hemm 128³ Step 2 on (data 1 × model 2): two all-reduces
+   totalling ``plan.collective_bytes``.  Phases 3i–3j's printed times
+   are taken beside the two subprocesses;
+4. cpu-vs-cuda — run in a subprocess (``chip_smoke.py --cpu-vs-cuda``,
+   which loads the parent's build) beside phases 3i–3j, whose parent only
+   waits on its ranks; its lines are printed when it is read after 3j,
+   before phase 3k's:
+   the ``fame-m-rt`` hemm on ``cuda`` and on ``cpu`` (plain
    versions), on both engine datapaths, every schedule (``baseline``
    never batched), batched and not, and the fused schedule on both
    ``HEContext`` datapaths; every c0 and c1 array-equal to its ``cpu``
@@ -3606,6 +3632,12 @@ def sharded_rank(spec: dict) -> dict:
     coll = dict(counts=dict(collectives.COUNTS), bytes=dict(collectives.BYTES))
     peak = torch.cuda.max_memory_allocated()
     _, timed = staged_call(prog, ctA, ctB)
+    if spec.get("step2_coll"):      # phase 3k: Step 2's collectives
+        ctA0, ctB0 = prog._step1([ctA, ctB])
+        st = prog._step2.sharded_collectives([ctA0] * l + [ctB0] * l)
+        step2_coll = dict(total=st.total_bytes, by_op=st.by_op,
+                          count=st.count, largest=st.largest, batch=2 * l,
+                          plan=prog._step2.plan.collective_bytes)
     err = float(np.abs(decrypt_matrix(ctx.eng, ctx.keys, ctC, m, n)
                        - A @ B).max())
     out = dict(rank=dist.get_rank(), coords=dict(mesh.coords),
@@ -3616,6 +3648,8 @@ def sharded_rank(spec: dict) -> dict:
                setup_s=t1 - t0, compile_s=t2 - t1, err=err,
                layouts=[hoist_layout(run) for run in (prog._step1,
                                                       prog._step2)])
+    if spec.get("step2_coll"):
+        out["step2_coll"] = step2_coll
     if spec.get("batch3"):
         run = compile_hlt(ctx, [plan.ds_sigma, plan.ds_tau, plan.ds_sigma],
                           schedule="sharded")
@@ -3801,7 +3835,8 @@ def phase_sharded(params, main: dict) -> dict:
     (padded to the 2 ct ranks), array-equal to the one-device program;
     then the same ranks as (data 1 × model 4): the limb-padding case
     (:func:`sharded_pad_rank`) on the kernels.  Returns rank 0's kernel
-    launches over the 2-rank counted call."""
+    launches over the 2-rank counted call, and the 2 ranks' results
+    (phase 3k reads their ``sharded_collectives`` of Step 2)."""
     # the 4-rank product is 32³, which keeps the phase near its budget of
     # 150 s (PERF.md §6)
     import torch
@@ -3817,7 +3852,7 @@ def phase_sharded(params, main: dict) -> dict:
     t0 = time.perf_counter()
     outs = spawn(sharded_rank, 2, dict(model=2, shape=main["shape"],
                                        seed=main["seed"], xla=True,
-                                       planted=True),
+                                       planted=True, step2_coll=True),
                  device="cuda", backend="gloo", timeout=600)
     log(f"[sharded] 2 ranks (data 1 × model 2, gloo, both on cuda:0): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3869,7 +3904,7 @@ def phase_sharded(params, main: dict) -> dict:
         check_pad_rank(r["pad4"])
     log("[sharded] these times are of ranks that time-share one card "
         "through a host-side collective: not a multi-GPU speed")
-    return outs[0]["launches"]
+    return outs[0]["launches"], outs
 
 
 # ---------------------------------------------------------------------------
@@ -4215,6 +4250,44 @@ def check_lm_smoke(r: dict, want: dict, arch: str) -> None:
         f"entries past the bound; tokens equal to one device's")
 
 
+def decode_reckon(cfg, model: int, batch: int) -> tuple:
+    """(calls, bytes) by kind of the collectives of one decode step of a
+    dense ``cfg`` on (data 1 × ``model``), every partial sum in float32:
+    a layer's attention adds an all-reduce after its row-parallel ``wo``
+    (none when its heads do not split: ``attn_replicated``) and, over a
+    sequence-split cache (KV heads that do not split), the
+    flash-decoding maximum and sum (and, with split Q heads, all-gathers
+    of q and of ``wk`` / ``wv`` where their columns split); the MLP an
+    all-reduce when ``d_ff`` splits; the
+    vocab-parallel embedding an all-reduce and the logits an
+    all-gather."""
+    from repro_torch.models.common import attn_replicated
+    L, d, H, hd = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.hdim
+    calls = dict(all_reduce=0, all_reduce_max=0, all_gather=0)
+    nbytes = dict(calls)
+
+    def add(kind, n, b):
+        calls[kind] += n
+        nbytes[kind] += n * b
+    whole = attn_replicated(cfg, model)
+    if not whole:
+        add("all_reduce", L, batch * d * 4)
+    if cfg.kv_heads % model:
+        add("all_reduce_max", L, batch * H * 4)
+        add("all_reduce", L, batch * H * (hd + 1) * 4)
+        if not whole:
+            add("all_gather", L, batch * H * hd * 4)
+            if cfg.kv_heads * hd % model == 0:   # wk / wv gathered whole
+                add("all_gather", 2 * L, d * cfg.kv_heads * hd * 4)
+    if cfg.d_ff % model == 0:
+        add("all_reduce", L, batch * d * 4)
+    if cfg.vocab_size % model == 0:
+        add("all_reduce", 1, batch * d * 4)
+        add("all_gather", 1, batch * cfg.vocab_size * 4)
+    return ({k: v for k, v in calls.items() if v},
+            {k: v for k, v in nbytes.items() if v})
+
+
 def phase_lm_mesh(first_loss: float, device: str = "cuda") -> dict:
     """Phase 3j: the LM's tensor, expert and data parallelism on ranks
     that time-share the card through gloo.  The parent frees its memory,
@@ -4262,12 +4335,8 @@ def phase_lm_mesh(first_loss: float, device: str = "cuda") -> dict:
     log(f"[lm-mesh] 2 ranks (data 1 × model 2, gloo, both on cuda:0): "
         f"{time.perf_counter() - t0:.1f} s")
     cfg = get_config(LM_ARCH)
-    layers = cfg.num_layers
-    reckon = dict(all_reduce=2 * layers + 1, all_gather=1)
-    # a decode step runs the batcher's 4 slots; 16-bit partial sums travel
-    # as float32
-    reckon_bytes = dict(all_reduce=(2 * layers + 1) * 4 * cfg.d_model * 4,
-                        all_gather=4 * cfg.vocab_size * 4)
+    # a decode step runs the batcher's 4 slots
+    reckon, reckon_bytes = decode_reckon(cfg, 2, 4)
     for r in outs:
         err = _max_err(r["f32_logits"], want_logits)
         if r["f32_tokens"] != want_tokens or not err <= LM_MESH_LOGIT_TOL:
@@ -4357,6 +4426,211 @@ def phase_lm_mesh(first_loss: float, device: str = "cuda") -> dict:
     log("[lm-mesh] these times are of ranks that time-share one card "
         "through a host-side collective: not a multi-GPU speed")
     return outs[0]["secure"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: the compile-time cost reports
+# ---------------------------------------------------------------------------
+
+
+class Background:
+    """A command run beside the phases in a subprocess of its own, its
+    output in a log file of ``directory``; ``wait`` waits
+    for it, raises with the log's tail unless it exited 0 and returns the
+    log; ``stop`` kills it if it still runs."""
+
+    def __init__(self, tag: str, argv: list, directory: str):
+        self.tag = tag
+        self.dir = directory
+        self.out = open(os.path.join(self.dir, "log.txt"), "w")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                                   if p]))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, stdout=self.out,
+                                     stderr=subprocess.STDOUT, env=env,
+                                     cwd=ROOT)
+
+    def wait(self, timeout: float) -> str:
+        ended = self.proc.poll() is not None
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        with open(os.path.join(self.dir, "log.txt")) as f:
+            text = f.read()
+        if rc != 0:
+            raise AssertionError(f"[{self.tag}] the subprocess exited {rc}:"
+                                 f"\n{text[-4000:]}")
+        log(f"[{self.tag}] the subprocess {'had ended' if ended else 'ended'}"
+            f" when read, {time.perf_counter() - self.t0:.1f} s after its "
+            f"start")
+        return text
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+
+
+def dryrun_job(device: str = "cuda") -> Background:
+    """Phase 3k's ``launch/dryrun.py`` on ``COST_HE_SETS`` and
+    ``COST_ARCHS`` × ``COST_SHAPE`` on the pod mesh, in a subprocess
+    (its fake process group never meets phases 3i / 3j's gloo groups)
+    started with phase 3i: it needs no card (fake tensors on
+    ``cuda``)."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    return Background("costs", [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--he",
+        *COST_HE_SETS, "--arch", *COST_ARCHS, "--shape", COST_SHAPE,
+        "--mesh", "pod", "--device", device, "--out", out], out)
+
+
+def dryrun_records(job: Background) -> dict:
+    """The dry-run job's records, once it exited 0."""
+    job.wait(COST_WAIT_S)
+    recs = {}
+    for name in sorted(os.listdir(job.dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(job.dir, name)) as f:
+                recs[name[:-len(".json")]] = json.load(f)
+    log(f"[costs] the dry-run cells' compile_s sum to "
+        f"{sum(r.get('compile_s', 0) for r in recs.values()):.1f}")
+    return recs
+
+
+def check_cost_records(recs: dict) -> None:
+    """Every record ``ok``, one for each cell; an HE record's collective
+    bytes are the sharded plan's reckoning for a rank's share (one
+    ciphertext, 16 model ranks) × chips.  Prints each record's dominant
+    term, its three roofline terms (data-sheet seconds, not measurements)
+    and ``compile_s``."""
+    from repro_torch.core.costmodel import sharded_collective_bytes
+    from repro_torch.core.params import PAPER_SETS
+    want = ([f"{h}__he__pod" for h in COST_HE_SETS]
+            + [f"{a}__{COST_SHAPE}__pod" for a in COST_ARCHS])
+    if sorted(recs) != sorted(want):
+        raise AssertionError(f"[costs] records {sorted(recs)}, expected "
+                             f"{sorted(want)}")
+    for name in want:
+        r = recs[name]
+        if not r.get("ok"):
+            raise AssertionError(f"[costs] {name}: {r.get('error')}\n"
+                                 f"{r.get('traceback', '')}")
+        t = r["roofline"]
+        log(f"[costs] {name}: dominant {r['dominant']}; roofline terms "
+            f"(data-sheet seconds a card) compute {t['compute_s']:.4e}, "
+            f"memory {t['memory_s']:.4e}, collective "
+            f"{t['collective_s']:.4e}; compile_s {r['compile_s']}; flops "
+            f"{r['flops_total']:.4e}, HBM bytes {r['hbm_bytes_total']:.4e}, "
+            f"collective bytes {r['collective_bytes_total']} over "
+            f"{r['chips']} chips; memory a rank {r['memory_analysis']}")
+        if name.startswith("he-mm-"):
+            p = PAPER_SETS[r["arch"][len("he-mm-"):]]
+            reckon = sharded_collective_bytes(p, n_model=16, ctb=1) \
+                * r["chips"]
+            if r["collective_bytes_total"] != reckon:
+                raise AssertionError(
+                    f"[costs] {name}: collective bytes "
+                    f"{r['collective_bytes_total']}, the plan's reckoning "
+                    f"{reckon}")
+
+
+def own_step_counts(smi: str, device: str = "cuda") -> None:
+    """The cost counter over ``LM_ARCH``'s bf16 decode step at phase 3f's
+    shapes (``launch/serve.py``'s batcher: 4 slots, a 128-long cache,
+    per-slot positions) on the card, on one device: on real CUDA tensors
+    and again on fake tensors of the same shapes.  The dot FLOPs must be
+    equal; the bytes are printed beside each other.  Then the counts over
+    the median step time (CUDA events), beside ``hlo_analysis.HW``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import hlo_analysis, hlo_cost
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    cfg = get_config(LM_ARCH)
+    B, S = LM_REQUESTS, COST_CACHE
+    pos = [LM_COST_POS + i for i in range(B)]
+    gen = torch.Generator(device=device).manual_seed(COST_SEED)
+    params = tf.init_params(cfg, gen)
+    cache = tf.init_cache(cfg, B, S, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=device,
+                        generator=gen)
+    where = torch.tensor(pos, device=device)
+
+    def step():
+        with torch.no_grad():
+            return tf.decode_step(cfg, params, tok, cache, where)
+
+    ms = []
+    for _ in range(COST_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    with hlo_cost.count() as real:
+        step()
+    torch.cuda.synchronize()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fp = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                               device=device), params)
+        fc = tf.init_cache(cfg, B, S, device=device)
+        ftok = torch.empty((B, 1), dtype=tok.dtype, device=device)
+        fpos = torch.empty((B,), dtype=where.dtype, device=device)
+        with torch.no_grad(), hlo_cost.count() as fake:
+            tf.decode_step(cfg, fp, ftok, fc, fpos)
+    rc, fk = real.cost(), fake.cost()
+    if rc.flops != fk.flops or rc.flops <= 0:
+        raise AssertionError(f"[costs] decode step dot FLOPs: real "
+                             f"{rc.flops}, fake {fk.flops}")
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    hw = hlo_analysis.HW
+    log(f"[costs] {LM_ARCH} bf16 decode step on one card (batch {B}, a "
+        f"{S}-long cache, positions {pos}): counted on real CUDA tensors "
+        f"{rc.flops:.6e} dot FLOPs, {rc.bytes_accessed:.6e} bytes; on fake "
+        f"tensors of the same shapes {fk.flops:.6e} FLOPs (equal), "
+        f"{fk.bytes_accessed:.6e} bytes (difference "
+        f"{rc.bytes_accessed - fk.bytes_accessed:.0f}); elementwise "
+        f"elements {rc.int_elem_ops:.6e} / {fk.int_elem_ops:.6e}")
+    log(f"[costs] the step's median {med:.3f} ms (CUDA events, "
+        f"{COST_STEPS} steps, the first left out: "
+        f"{['%.3f' % t for t in ms]}): {rc.flops / med / 1e9:.4f} TFLOP/s "
+        f"against the data sheet's {hw['peak_flops_bf16'] / 1e12:.0f} "
+        f"(bf16 dense), {rc.bytes_accessed / med / 1e9:.4f} TB/s of counted"
+        f" (unfused) bytes against {hw['hbm_bw'] / 1e12:.2f}; the card: "
+        f"{smi}")
+    del params, cache, fp, fc
+
+
+def check_sharded_collectives(r: dict) -> None:
+    """Phase 3i's ``sharded_collectives`` of the Set-B hemm's Step 2 on
+    (data 1 × model 2): two all-reduces, totalling
+    ``plan.collective_bytes``."""
+    c = r["step2_coll"]
+    if c["total"] != c["plan"] or c["count"] != 2 or \
+            c["by_op"] != {"all-reduce": c["plan"]}:
+        raise AssertionError(f"[costs] rank {r['rank']}: Step 2's "
+                             f"sharded_collectives {c}")
+    log(f"[costs] rank {r['rank']}: sharded_collectives of the Set-B hemm "
+        f"128³ Step 2 ({c['batch']} HLTs) on (data 1 × model 2): "
+        f"{c['count']} all-reduces, {c['total']:.0f} bytes a rank sends = "
+        f"plan.collective_bytes {c['plan']}; the largest "
+        f"{c['largest'][:2]}")
+
+
+def phase_costs(job: Background, sharded_r: list, smi: str) -> None:
+    """Phase 3k: the dry-run records, the sharded program's collectives
+    and the counts on the card's own step (timed once both subprocesses
+    have ended)."""
+    check_cost_records(dryrun_records(job))
+    for r in sharded_r:
+        check_sharded_collectives(r)
+    own_step_counts(smi)
 
 
 # ---------------------------------------------------------------------------
@@ -4662,6 +4936,23 @@ LM_MESH_TOY = dict(logN=6, L=4, k=3, beta=2)
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")
 
+#: phase 3k: the dry-run's cells (the pod mesh), the decode step counted on
+#: the card (phase 3f's batcher: a 128-long cache), its steps timed
+COST_HE_SETS = ("set-b", "set-c")
+COST_ARCHS = ("internlm2-1.8b", "granite-moe-3b-a800m", "mamba2-780m",
+              "zamba2-2.7b", "musicgen-large")
+COST_SHAPE = "decode_32k"
+COST_CACHE = 128
+LM_COST_POS = 9
+COST_STEPS = 11
+COST_SEED = 20263
+COST_WAIT_S = 300
+#: phase 4 runs beside phases 3i-3j (~35 s alone) on CPU_THREADS of the
+#: host's cores, as does phase 3k's dry-run; the longest waits for them
+#: after 3j
+CPU_WAIT_S = 300
+CPU_THREADS = 2
+
 
 def main() -> int:
     import torch
@@ -4670,10 +4961,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.fame_sets import MM_BENCHMARKS
-    from repro_torch.core.ckks import CkksEngine
-    from repro_torch.core.params import SET_B
     from repro_torch.kernels import build
+    if sys.argv[1:] == ["--cpu-vs-cuda"]:     # phase 4, run by the parent
+        torch.set_num_threads(CPU_THREADS)    # beside the ranks of 3i-3j
+        build.load()                          # the parent's build
+        phase_cpu_vs_cuda()
+        return 0
 
     t0 = time.perf_counter()
     build.load()
@@ -4688,6 +4981,20 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[build] card: {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    jobs = {}
+    try:
+        return run_phases(smi, jobs)
+    finally:
+        for job in jobs.values():
+            job.stop()
+
+
+def run_phases(smi: str, jobs: dict) -> int:
+    """Phases 2 to 4 (module docstring), then the result lines."""
+    import torch
+    from repro_torch.configs.fame_sets import MM_BENCHMARKS
+    from repro_torch.core.ckks import CkksEngine
+    from repro_torch.core.params import SET_B
 
     shape = MM_BENCHMARKS["set-b"]["type-iv"]
     records = {name: KernelRecord(name, *src, path="kernel-API run"
@@ -4757,8 +5064,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
+    # phase 3k's dry-run and phase 4 (checks only, no timing) in
+    # subprocesses beside phases 3i-3j, whose parent waits on its ranks
+    jobs["dryrun"] = dryrun_job()
+    jobs["cpu"] = Background(
+        "cpu-vs-cuda", [sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--cpu-vs-cuda"],
+        tempfile.mkdtemp(prefix="chip_smoke_cpu_"))
+    log("[sharded] phases 3i-3j run beside two subprocesses (phase 3k's "
+        "dry-run, phase 4): their times are taken beside them")
     t0 = time.perf_counter()
-    sharded = phase_sharded(SET_B, main_out)
+    sharded, sharded_ranks = phase_sharded(SET_B, main_out)
     del main_out
     gc.collect()
     torch.cuda.empty_cache()
@@ -4771,8 +5087,16 @@ def main() -> int:
     log(f"[lm-mesh] phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    phase_cpu_vs_cuda()
-    log(f"[cpu-vs-cuda] phase {time.perf_counter() - t0:.1f} s")
+    for line in jobs["cpu"].wait(CPU_WAIT_S).splitlines():
+        if line.startswith("[cpu-vs-cuda]"):
+            log(line)
+    log(f"[cpu-vs-cuda] waited {time.perf_counter() - t0:.1f} s for it")
+
+    t0 = time.perf_counter()
+    phase_costs(jobs["dryrun"], sharded_ranks, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[costs] phase {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] whole command {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [

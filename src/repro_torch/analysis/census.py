@@ -35,6 +35,8 @@ execution of the HLT (two on CUDA) at compile time.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.analysis.diagnostics import Diagnostic
@@ -106,7 +108,7 @@ def take_census(run) -> dict:
             finally:
                 if cuda:
                     torch.cuda.set_sync_debug_mode(0)
-        return dict(collectives=dict(coll),
+        return dict(collectives=dict(Counter(e[0] for e in coll)),
                     calls=_delta(ops.CALLS, calls0),
                     ntt=_delta(ntt.CALLS, ntt0), sync=sync)
     finally:

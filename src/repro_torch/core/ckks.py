@@ -210,14 +210,13 @@ class CkksEngine:
 
     # -- sampling ------------------------------------------------------------
 
-    def _residues_all(self, ints: np.ndarray, idx) -> np.ndarray:
-        qs = np.asarray([self.ctx.moduli_host[i] for i in idx],
-                        np.int64)[:, None]
-        return np.mod(ints[None, :], qs).astype(np.uint32)
-
     def _small_poly_eval(self, ints: np.ndarray, idx) -> torch.Tensor:
-        return self._ntt(self._to_dev(self._residues_all(ints, idx)),
-                         self.basis(idx))
+        """The eval residues of integer coefficients ``ints`` over basis
+        ``idx``, reduced on the device (one row crosses, not |idx|)."""
+        view = self.basis(idx)
+        x = torch.from_numpy(np.ascontiguousarray(ints, np.int64))
+        res = torch.remainder(x.to(self.device)[None, :], view.moduli)
+        return self._ntt(res.to(torch.int32), view)
 
     def _uniform_poly(self, rng: np.random.Generator, idx) -> torch.Tensor:
         qs = np.array([self.ctx.moduli_host[i] for i in idx],

@@ -71,7 +71,7 @@ from repro_torch.core.costmodel import (SMEM_PER_BLOCK, hlt_hoist_bytes,
                                         sharded_collective_bytes, step2_chunk)
 from repro_torch.core.hlt import (SCHEDULES, DiagSet, Hoisted, hoist,
                                   hoist_batched)
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, hlo_analysis
 from repro_torch.distributed.sharding import logical_axis_size, make_rules
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import Mesh, check_mesh
@@ -761,6 +761,22 @@ class CompiledHLT:
                            it.scale * ds.scale / q_ell)
                 for b, (it, ds) in enumerate(zip(items, self._diags,
                                                  strict=True))]
+
+    def sharded_collectives(self, items) -> hlo_analysis.CollectiveStats:
+        """The collectives of one run of this rank's sharded body on
+        ``items`` (``_run_sharded``'s pipeline, without the output
+        gather that follows it): the counterpart of the reference's
+        ``sharded_hlo``, whose HLO text its ``collective_stats`` reads.
+        With one ct rank the total is ``plan.collective_bytes``."""
+        if not self.plan.schedule.startswith("sharded"):
+            raise ValueError(f"schedule {self.plan.schedule!r} is not "
+                             f"sharded")
+        self.ctx._check_generation(self._gen)
+        items = ([items] if self.plan.batch is None
+                 else self._batch_items(items))
+        with collectives.scope() as events:
+            self._sharded_body(items)
+        return hlo_analysis.collective_stats(events)
 
     def _run_single(self, item, ds: DiagSet) -> Ciphertext:
         """One HLT on the plan's schedule.  ``pallas``: hoist (unless given a

@@ -38,6 +38,7 @@ import dataclasses
 
 from repro_torch.core.hemm import diag_count_formulas
 from repro_torch.core.params import HEParams
+from repro_torch.distributed.hlo_analysis import HW
 from repro_torch.kernels import basechange, fused_hlt
 
 MB = float(1 << 20)
@@ -52,8 +53,9 @@ SMEM_PER_BLOCK = 227.0 * 1024
 
 #: Cost of one cross-device byte relative to one local HBM byte (used as
 #: HBM-equivalent bytes per collective byte): the H100 SXM data sheet's
-#: HBM3 at 3.35 TB/s against NVLink 4 at 450 GB/s a direction.
-ICI_PENALTY = 3.35e12 / 450e9
+#: HBM3 against NVLink 4 a direction (``distributed/hlo_analysis.py``
+#: ``HW``).
+ICI_PENALTY = HW["hbm_bw"] / HW["ici_bw"]
 
 # Representative per-HLT diagonal count when the caller doesn't know d yet
 # (σ of a 16×16 single-ciphertext MM tile: 2·16−1).

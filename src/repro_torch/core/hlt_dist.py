@@ -39,9 +39,16 @@ The float BaseConv correction is float64 with the fused kernels'
 reference's CPU choice, so a sharded program is array-equal to the
 one-device ``"pallas"`` one.
 
-Not here: the reference's GSPMD prototype (``build_tables``,
-``make_mo_hlt_fn``, ``lower_mo_hlt_spmd``), which only its dry-run
-lowers; it comes with the compile-time cost reports.
+The reference's GSPMD prototype is here too (``build_tables``,
+``make_mo_hlt_fn``): one DiagSet's d rotations applied to a ciphertext
+batch over all limbs, the float correction in float32 or float64 with
+the reference's ``+0.5e-6``, array-equal to the reference's.  Eager
+torch places nothing, so its sharding constraints have no counterpart
+(every rank computes the same values); the distributed MO-HLT is
+``schedule="sharded"``.  ``lower_mo_hlt_spmd`` returns what the dry-run
+(``launch/dryrun.py``) prices in the reference's place: one rank's share
+of the limb-sharded MO-HLT on the ``"sharded_xla"`` datapath, on
+arguments of the rank's shapes.
 """
 from __future__ import annotations
 
@@ -52,11 +59,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import automorph
 from repro_torch.core import modmath as mm
 from repro_torch.core import ntt
 from repro_torch.core.params import HEParams, get_context, u32_tensor
 from repro_torch.core.rns import RnsTools
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, hlo_cost
 from repro_torch.kernels import basechange, ops
 
 _mont = mm.to_mont_host_arr
@@ -65,6 +73,205 @@ _mont = mm.to_mont_host_arr
 #: their int64 temporaries (a step of 32 at Set-B's 12 rows a rank: ~0.1 GB
 #: each) where a Step 2 of 256 HLTs at once took ~35 GB a rank
 PLAIN_CHUNK = 32
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD prototype (the reference's dry-run workload)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DistTables:
+    """Host tables of the prototype MO-HLT (the reference's, numpy)."""
+    params: HEParams
+    d: int
+    full: tuple                    # prime indices [Q_L..., P...]
+    q32: np.ndarray                # (M,1) u32
+    qneg: np.ndarray               # (M,1)
+    r2: np.ndarray                 # (M,1)
+    psi_m: np.ndarray              # (M,N) mont twiddles
+    psii_m: np.ndarray
+    ninv_m: np.ndarray             # (M,1) mont
+    perms: np.ndarray              # (d,N) int32
+    p_raise_m: np.ndarray          # (L+1,1) [P]_{q_i} in mont form
+    digits: list                   # per digit: dict(own, gen, tables...)
+    md: dict                       # merged ModDown+Rescale tables
+    ctb: int
+
+
+def build_tables(params: HEParams, d: int, ctb: int) -> DistTables:
+    """The prototype's tables at level L: rotations z = −(d//2) ..
+    d − d//2 − 1 (z = 0 the identity), the digits' ModUp and the merged
+    ModDown+Rescale BaseConv tables."""
+    ctx = get_context(params)
+    h = ctx.host
+    tools = RnsTools(ctx)
+    L, N = params.L, params.N
+    full = tuple(range(L + 1)) + tuple(range(params.num_main,
+                                             params.num_total))
+    M = len(full)
+    qs = np.array([ctx.moduli_host[i] for i in full], dtype=np.uint64)[:, None]
+    q32 = qs.astype(np.uint32)
+    qneg = np.empty((M, 1), np.uint32)
+    r2 = np.empty((M, 1), np.uint32)
+    for r_, i in enumerate(full):
+        qneg[r_, 0], r2[r_, 0] = mm.mont_constants(ctx.moduli_host[i])
+    rows = np.asarray(full)
+    ninv_m = _mont(np.asarray(h.n_inv)[rows][:, None].astype(np.uint64), qs)
+    zs = list(range(-(d // 2), d - d // 2))
+    perms = np.stack([
+        np.arange(N, dtype=np.int32) if z == 0 else
+        automorph.eval_perm(N, automorph.galois_elt_rot(z, N)).astype(
+            np.int32) for z in zs])
+    Pprod = 1
+    for i in range(params.num_main, params.num_total):
+        Pprod *= ctx.moduli_host[i]
+    p_raise = np.array([Pprod % ctx.moduli_host[i] for i in range(L + 1)],
+                       dtype=np.uint64)[:, None]
+    p_raise_m = _mont(p_raise, qs[: L + 1])
+
+    pos = {g: i for i, g in enumerate(full)}
+
+    def bc(own, gen):
+        hat_inv, W, D_mod_t, inv_d = tools._bc_tables(own, gen)
+        own_q = np.array([ctx.moduli_host[i] for i in own],
+                         dtype=np.uint64)[:, None]
+        gen_q = np.array([ctx.moduli_host[i] for i in gen],
+                         dtype=np.uint64)[:, None]
+        return dict(hat_inv_m=_mont(np.asarray(hat_inv, np.uint64), own_q),
+                    W_m=_mont(np.asarray(W, np.uint64), gen_q)[:, :, None],
+                    D_mod_m=_mont(np.asarray(D_mod_t, np.uint64), gen_q),
+                    inv_d=np.asarray(inv_d, np.float64))
+
+    digits = [dict(own_rows=np.array([pos[i] for i in own]),
+                   gen_rows=np.array([pos[i] for i in gen]), **bc(own, gen))
+              for own, gen, _ in tools.digit_bases(L)]
+    spec = tuple(range(params.num_main, params.num_total))
+    P_ext = spec + (L,)
+    Q_out = tuple(range(L))
+    qo_q = np.array([ctx.moduli_host[i] for i in Q_out],
+                    dtype=np.uint64)[:, None]
+    md = dict(drop_rows=np.array([pos[i] for i in P_ext]),
+              out_rows=np.array([pos[i] for i in Q_out]),
+              p_inv_m=_mont(np.asarray(tools._moddown_tables(P_ext, Q_out),
+                                       np.uint64), qo_q),
+              **bc(P_ext, Q_out))
+    return DistTables(params, d, full, q32, qneg, r2,
+                      np.asarray(h.psi_brv_mont)[rows],
+                      np.asarray(h.psi_inv_brv_mont)[rows], ninv_m, perms,
+                      p_raise_m, digits, md, ctb)
+
+
+def _base_conv_mont(x, t, fp_dtype):
+    """x: (..., |own|, N) coefficients, standard domain.  Returns (...,
+    |gen|, N): the HPS BaseConv with the reference's float floor (in
+    ``fp_dtype``, + 0.5e-6)."""
+    q_own, q_gen = t["q_own"], t["q_gen"]          # (|own|,1), (|gen|,1)
+    y = mm.montmul(x, t["hat_inv_m"], q_own, t["qneg_own"])
+    v = torch.floor(torch.sum(y.to(fp_dtype) * t["inv_d"].to(fp_dtype),
+                              dim=-2) + 0.5e-6).to(torch.int64)  # (..., N)
+    prod = mm.montmul(y[..., None, :, :], t["W_m"], q_gen[..., None, :],
+                      t["qneg_gen"][..., None, :])  # (..., |gen|, |own|, N)
+    acc = mm.montsum(prod, q_gen, axis=-2)
+    corr = mm.montmul(v[..., None, :], t["D_mod_m"], q_gen, t["qneg_gen"])
+    return mm.montsub(acc, corr, q_gen)
+
+
+def _mk_bc_tables(tabs: DistTables, spec: dict, device) -> dict:
+    own = spec.get("own_rows", spec.get("drop_rows"))
+    gen = spec.get("gen_rows", spec.get("out_rows"))
+    return dict(
+        hat_inv_m=_dev(spec["hat_inv_m"], device),
+        W_m=_dev(spec["W_m"], device),
+        D_mod_m=_dev(spec["D_mod_m"], device),
+        inv_d=_dev(spec["inv_d"], device),
+        q_own=_dev(tabs.q32[own], device), qneg_own=_dev(tabs.qneg[own], device),
+        q_gen=_dev(tabs.q32[gen], device), qneg_gen=_dev(tabs.qneg[gen], device),
+    )
+
+
+def make_mo_hlt_fn(tabs: DistTables, rules=None, fp_dtype=torch.float32,
+                   unroll: int = 1):
+    """Returns fn(c0, c1, u_mont, rk0_mont, rk1_mont) -> (c0', c1').
+
+    c0, c1: (CTB, L+1, N) u32 (int32 bits) std-domain eval.
+    u_mont: (d, M, N); rk{0,1}_mont: (d, β, M, N) — Montgomery domain.
+    Output: (CTB, L, N) ×2 (one level consumed — merged ModDown+Rescale),
+    the reference's values bit for bit.  ``rules`` and ``unroll`` are the
+    reference's GSPMD placement hints and its scan unrolling: eager torch
+    has no counterpart, so every rank computes the same values (the
+    distributed MO-HLT is ``schedule="sharded"``).  The tables go to the
+    inputs' device."""
+    p = tabs.params
+    L, N, M = p.L, p.N, len(tabs.full)
+    nb = len(tabs.digits)
+    md = tabs.md
+
+    def fn(c0, c1, u_mont, rk0_mont, rk1_mont):
+        B, device = c0.shape[0], c0.device
+        q32, qneg = _dev(tabs.q32, device), _dev(tabs.qneg, device)
+        psi_m, psii_m = _dev(tabs.psi_m, device), _dev(tabs.psii_m, device)
+        ninv_m = _dev(tabs.ninv_m, device)
+        p_raise_m = _dev(tabs.p_raise_m, device)
+        perms = torch.as_tensor(tabs.perms, dtype=torch.int64, device=device)
+        dig_bc = [_mk_bc_tables(tabs, s, device) for s in tabs.digits]
+        md_bc = _mk_bc_tables(tabs, md, device)
+        p_inv_m = _dev(md["p_inv_m"], device)
+        # ---- hoist: Decomp + ModUp ----
+        digs = []
+        for j, spec in enumerate(tabs.digits):
+            own, gen = spec["own_rows"], spec["gen_rows"]
+            dig_eval = c1[:, own[0]: own[-1] + 1]
+            coeff = ntt.intt_mont_raw(dig_eval, psii_m[own], ninv_m[own],
+                                      q32[own], qneg[own])
+            ext = _base_conv_mont(coeff, dig_bc[j], fp_dtype)
+            ext_eval = ntt.ntt_mont_raw(ext, psi_m[gen], q32[gen], qneg[gen])
+            x = torch.zeros((B, M, N), dtype=torch.int32, device=c1.device)
+            x[:, own] = dig_eval
+            x[:, gen] = ext_eval
+            digs.append(x)
+        digits = torch.stack(digs, dim=1)                   # (CTB, β, M, N)
+        zeros_sp = torch.zeros((B, p.k, N), dtype=torch.int32,
+                               device=c0.device)
+        c0e = torch.cat([mm.montmul(c0, p_raise_m, q32[: L + 1],
+                                    qneg[: L + 1]), zeros_sp], dim=1)
+        c1e = torch.cat([mm.montmul(c1, p_raise_m, q32[: L + 1],
+                                    qneg[: L + 1]), zeros_sp], dim=1)
+
+        # ---- rotation loop (Automorph → KeyIP → DiagIP, limb-local) ----
+        a0 = torch.zeros((B, M, N), dtype=torch.int32, device=c0.device)
+        a1 = torch.zeros_like(a0)
+        for t in range(tabs.d):
+            pm = perms[t]
+            dig_rot = digits[..., pm]
+            c0r = c0e[..., pm]
+            k0 = torch.zeros_like(a0)
+            k1 = torch.zeros_like(a1)
+            for j in range(nb):
+                k0 = mm.montadd(k0, mm.montmul(dig_rot[:, j], rk0_mont[t, j],
+                                               q32, qneg), q32)
+                k1 = mm.montadd(k1, mm.montmul(dig_rot[:, j], rk1_mont[t, j],
+                                               q32, qneg), q32)
+            is_id = t == tabs.d // 2        # z = 0 bypasses KeyIP
+            t0 = c0e if is_id else mm.montadd(k0, c0r, q32)
+            t1 = c1e if is_id else k1
+            a0 = mm.montadd(a0, mm.montmul(u_mont[t], t0, q32, qneg), q32)
+            a1 = mm.montadd(a1, mm.montmul(u_mont[t], t1, q32, qneg), q32)
+
+        # ---- merged ModDown+Rescale ----
+        def mod_down(acc):
+            drop, out = md["drop_rows"], md["out_rows"]
+            xp = ntt.intt_mont_raw(acc[:, drop], psii_m[drop], ninv_m[drop],
+                                   q32[drop], qneg[drop])
+            conv = _base_conv_mont(xp, md_bc, fp_dtype)
+            conv_eval = ntt.ntt_mont_raw(conv, psi_m[out], q32[out],
+                                         qneg[out])
+            diff = mm.montsub(acc[:, out], conv_eval, q32[out])
+            return mm.montmul(diff, p_inv_m, q32[out], qneg[out])
+
+        return mod_down(a0), mod_down(a1)
+
+    return fn
 
 
 @dataclasses.dataclass
@@ -500,7 +707,7 @@ def make_sharded_hlt_fn(tabs: ShardTables, rules, t: dict, *, d_pad: int,
         slots = a["slots"][s:e].long()
         acc0 = torch.zeros_like(c0e)
         acc1 = torch.zeros_like(c0e)
-        for ti in range(d_pad):
+        for ti in hlo_cost.loop(d_pad, "rotations"):
             pm = a["perms"][slots, ti].long()           # (B, N)
             dig_rot = torch.gather(digits, -1,
                                    pm[:, None, None, :].expand_as(digits))
@@ -521,3 +728,56 @@ def make_sharded_hlt_fn(tabs: ShardTables, rules, t: dict, *, d_pad: int,
         return acc0, acc1
 
     return body_pallas if datapath == "pallas" else body_xla
+
+
+@dataclasses.dataclass
+class MoHltShare:
+    """One rank's share of the limb-sharded MO-HLT (``lower_mo_hlt_spmd``):
+    ``share()`` runs ``fn(args)``, the rank's (B_loc, rows_loc, N) blocks
+    of both output polynomials; ``unroll`` as the caller asked."""
+    fn: object
+    args: dict
+    unroll: int
+
+    def __call__(self):
+        return self.fn(self.args)
+
+
+def lower_mo_hlt_spmd(params: HEParams, mesh, rules, d: int = 127,
+                      ctb: Optional[int] = None, unroll: int = 1,
+                      device="cuda") -> MoHltShare:
+    """What the dry-run prices in place of the reference's lowered GSPMD
+    prototype: this rank's share of the limb-partitioned MO-HLT, one
+    DiagSet of ``d`` rotations applied to ``ctb`` ciphertexts (default:
+    the ct ranks, pod × data, one a rank) at level L, as
+    ``make_sharded_hlt_fn`` runs it on the ``"sharded_xla"`` datapath
+    (plain torch: the reference prices XLA's partitioning of its plain
+    prototype, not a Pallas kernel).  The tables are
+    ``build_shard_tables`` over the mesh's model ranks, this rank's rows;
+    the arguments are fresh tensors of the rank's shapes on ``device``
+    with no meaningful values (the dry-run makes them under
+    ``FakeTensorMode``: nothing is allocated).  ``unroll`` has no eager
+    meaning; it is kept in the record."""
+    limb = _physical_axes(rules, "limbs")
+    ct = _physical_axes(rules, "ct_batch")
+    n_model, n_ct = mesh.size(limb), mesh.size(ct)
+    ctb = n_ct if ctb is None else int(ctb)
+    tabs = build_shard_tables(params, params.L, n_model)
+    t = rank_tables(tabs, mesh.index(limb), device)
+    nbeta = len(tabs.digits)
+    b_loc = -(-ctb // n_ct)
+    N, rows, i32 = params.N, tabs.rows_loc, torch.int32
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=i32, device=device)
+
+    args = dict(c0f=empty(b_loc, rows, N), c1f=empty(b_loc, rows, N),
+                c1rep=empty(b_loc, params.L + 1, N),
+                slots=torch.zeros(b_loc, dtype=i32, device=device),
+                u=empty(1, d, rows, N), rk0=empty(1, d, nbeta, rows, N),
+                rk1=empty(1, d, nbeta, rows, N),
+                perms=torch.zeros((1, d, N), dtype=i32, device=device),
+                is_id=torch.zeros((1, d, 1), dtype=i32, device=device))
+    fn = make_sharded_hlt_fn(tabs, rules, t, d_pad=d, nbeta=nbeta,
+                             datapath="xla")
+    return MoHltShare(fn, args, unroll)

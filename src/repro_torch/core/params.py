@@ -79,6 +79,8 @@ SET_A = HEParams("Set-A", logN=13, L=4, k=1, beta=1, logq_paper=218 / 5)
 SET_B = HEParams("Set-B", logN=15, L=15, k=8, beta=2, logq_paper=855 / 16)
 SET_C = HEParams("Set-C", logN=16, L=31, k=12, beta=3, logq_paper=1693 / 32)
 
+PAPER_SETS = {"set-a": SET_A, "set-b": SET_B, "set-c": SET_C}
+
 
 def toy_params(logN: int = 6, L: int = 4, k: int = 2, beta: int = 2,
                scale_bits: int = 26, name: str = "toy") -> HEParams:

@@ -30,8 +30,10 @@ from (16-bit floats cross as float32):
 
 Each call adds one to ``COUNTS`` and its bytes to ``BYTES`` (an
 all-reduce or reduce-scatter: the tensor it contributes; an all-gather:
-the tensor it assembles), and to every :func:`scope` open around it: the
-verifier's collective census (``analysis/census.py``, rule JX001) reads a
+the tensor it assembles), and its (kind, bytes, the group's ranks) to
+every :func:`scope` open around it: the verifier's collective census
+(``analysis/census.py``, rule JX001) and the cost reports
+(``distributed/hlo_cost.py``, ``hlo_analysis.collective_stats``) read a
 scope.  A collective over a group of one rank (``group`` None) is not
 issued and not counted.
 
@@ -62,22 +64,25 @@ def reset() -> None:
 
 
 @contextlib.contextmanager
-def scope():
-    """A dict that counts, by kind, the collectives issued inside the
-    ``with`` block."""
-    counts: dict = {}
-    _SCOPES.append(counts)
+def scope(events=None):
+    """Inside the ``with`` block, every collective's (kind, bytes, the
+    group's ranks) is appended to ``events`` (anything with ``append``;
+    a new list when None), which the block gets."""
+    events = [] if events is None else events
+    _SCOPES.append(events)
     try:
-        yield counts
+        yield events
     finally:
-        _SCOPES.remove(counts)
+        _SCOPES[:] = [e for e in _SCOPES if e is not events]
 
 
-def _record(kind: str, nbytes: int) -> None:
+def _record(kind: str, nbytes: int, group=None) -> None:
     COUNTS[kind] += 1
     BYTES[kind] += nbytes
-    for counts in _SCOPES:
-        counts[kind] = counts.get(kind, 0) + 1
+    if _SCOPES:
+        event = (kind, nbytes, dist.get_world_size(group))
+        for events in _SCOPES:
+            events.append(event)
 
 
 @contextlib.contextmanager
@@ -95,7 +100,7 @@ def _sync_check_suspended():
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over the ranks of ``group``, in place; returns ``t``."""
-    _record("all_reduce", t.numel() * t.element_size())
+    _record("all_reduce", t.numel() * t.element_size(), group)
     with _sync_check_suspended():
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
@@ -104,7 +109,7 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group, size: int) -> list:
     """The ``size`` ranks' tensors of ``t``'s shape, in group rank order."""
     out = [torch.empty_like(t) for _ in range(size)]
-    _record("all_gather", size * t.numel() * t.element_size())
+    _record("all_gather", size * t.numel() * t.element_size(), group)
     with _sync_check_suspended():
         dist.all_gather(out, t.contiguous(), group=group)
     return out
@@ -113,7 +118,7 @@ def all_gather(t: torch.Tensor, group, size: int) -> list:
 def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     """The elementwise maximum of ``t`` over the ranks of ``group``, in
     place; returns ``t``."""
-    _record("all_reduce_max", t.numel() * t.element_size())
+    _record("all_reduce_max", t.numel() * t.element_size(), group)
     with _sync_check_suspended():
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
@@ -125,7 +130,7 @@ def reduce_scatter(t: torch.Tensor, group, size: int, index: int,
     ``t`` over ``group``: an all-reduce of which a rank keeps its block."""
     dtype = t.dtype
     t = t.float() if dtype in _NARROW else t.contiguous().clone()
-    _record("reduce_scatter", t.numel() * t.element_size())
+    _record("reduce_scatter", t.numel() * t.element_size(), group)
     with _sync_check_suspended():
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t.chunk(size, dim)[index].to(dtype).contiguous()
@@ -133,7 +138,7 @@ def reduce_scatter(t: torch.Tensor, group, size: int, index: int,
 
 def barrier(group=None) -> None:
     """Wait for every rank of ``group`` (the whole world when None)."""
-    _record("barrier", 0)
+    _record("barrier", 0, group)
     with _sync_check_suspended():
         dist.barrier(group=group)
 

@@ -22,6 +22,9 @@ starts the ranks on this host and initializes the group.
 The backend is an argument, never a silent switch: ``"nccl"`` is the
 default on ``cuda``, ``"gloo"`` on ``cpu``; ranks that share one card
 need ``"gloo"`` (NCCL takes one rank a card, and the mesh refuses more).
+The dry-run (``launch/dryrun.py``) builds the production meshes over
+``"fake"``, a process group of one process that stands for every rank
+and moves no data.
 """
 from __future__ import annotations
 
@@ -77,7 +80,8 @@ class Mesh:
             if self.device.index is None:
                 self.device = torch.device(
                     "cuda", dist.get_rank() % torch.cuda.device_count())
-        _check_string_hashes(self.device, world)
+        if backend != "fake":   # one process stands for every fake rank
+            _check_string_hashes(self.device, world)
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
         self.backend = backend

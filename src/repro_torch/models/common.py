@@ -14,9 +14,16 @@ model axis the reference replicates K/V while the Q heads stay split: a
 rank then computes every KV head and attends with those its local Q
 heads read; the serve cache holds a block of the sequence instead
 (``seq_sp``), and a decode step combines the ranks' partial softmaxes
-(flash-decoding: the maximum, then the sums, all-reduced).  The
-reference's ``shard`` constraints are called at its points and check the
-local shapes.  Without a mesh every layer runs the one-device code.
+(flash-decoding: the maximum, then the sums, all-reduced).  When the Q
+heads do not divide the model axis, or a rank's Q heads would not group
+evenly over the KV heads (``attn_replicated``), the reference's
+``constrain`` drops the axis and replicates the heads: every rank then
+holds the whole ``wq`` / ``wk`` / ``wv`` / ``wo``, computes every head
+with the one-device code and adds the block's output once, with no
+all-reduce over ``model`` (a decode step still combines the ranks'
+partial softmaxes over the sequence-split cache).  The reference's
+``shard`` constraints are called at its points and check the local
+shapes.  Without a mesh every layer runs the one-device code.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import hlo_cost
 from repro_torch.distributed import sharding as sh
 
 
@@ -205,7 +213,7 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0,
                    device=q.device)
     l = torch.zeros((B, KV, g, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, g, Sq, D), dtype=q.dtype, device=q.device)
-    for j in range(nblk):
+    for j in hlo_cost.loop(nblk, "attn_kv_blocks"):
         kt, vt = kb[:, j], vb[:, j]
         kpos = j * block + torch.arange(block, device=q.device)
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kt).float() * scale
@@ -323,7 +331,9 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     inside the cache.  ``kv_override``: (k, v) of (B, Skv, KV, hd) to
     attend to instead (cross-attention: no RoPE, no mask, no cache)."""
     R = sh.ranks()
-    if R is not None and R.M > 1:
+    if R is None or R.M == 1:
+        R = None                # one device
+    elif not attn_replicated(cfg, R.M):
         return _attn_tp(cfg, p, x, positions, R, kv_cache=kv_cache,
                         cache_len=cache_len, kv_override=kv_override,
                         causal=causal)
@@ -348,6 +358,15 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
                                   block=cfg.attn_block)
         return out.reshape(B, S, h * hd) @ p["wo"], None
     kc, vc = kv_cache["k"], kv_cache["v"]
+    if R is not None:
+        # heads replicated over model: every KV head, a block of the
+        # sequence; a decode step combines the ranks' partial softmaxes
+        offset = _write_seq_split(kc, vc, k, v, cache_len, R)
+        out = (decode_attention_seq(q, kc, vc, cache_len, offset, R)
+               if S == 1 else
+               blockwise_attention(q, k, v, causal=True,
+                                   block=cfg.attn_block))
+        return out.reshape(B, S, h * hd) @ p["wo"], kv_cache
     if isinstance(cache_len, torch.Tensor) and cache_len.ndim:
         if S != 1:
             raise ValueError("a per-slot cache_len is a decode-only path")
@@ -371,23 +390,33 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
 # ---------------------------------------------------------------------------
 
 
+def attn_replicated(cfg: ModelConfig, M: int) -> bool:
+    """Whether attention runs whole on every rank of a model axis of
+    ``M``: its Q heads do not split ``M`` ways, or a rank's block of them
+    would not group evenly over the KV heads.  The reference's
+    ``constrain`` replicates such heads; so do the parameters'
+    placements (``train_step.leaf_placement``)."""
+    H, KV = cfg.num_heads, cfg.kv_heads
+    if M <= 1:
+        return False
+    if H % M:
+        return True
+    if KV % M == 0:
+        return False
+    g, hl = H // KV, H // M
+    return bool(hl % g and g % hl)
+
+
 def kv_heads_of_rank(cfg: ModelConfig, R) -> tuple:
     """(kv0, kv1, split): the KV heads this model rank's Q heads read, and
     whether the KV heads are split over ``model`` (else every rank
-    computes all of them).  The Q heads must split: a config whose heads
-    do not divide the model axis is refused."""
+    computes all of them).  Only for heads that split
+    (``attn_replicated`` false)."""
     H, KV = cfg.num_heads, cfg.kv_heads
-    if not R.split(H):
-        raise NotImplementedError(
-            f"{cfg.name}: {H} attention heads on a model axis of {R.M}: the "
-            f"port splits whole heads")
     if R.split(KV):
         k = KV // R.M
         return R.m * k, (R.m + 1) * k, True
     g, hl = H // KV, H // R.M
-    if hl % g and g % hl:
-        raise NotImplementedError(
-            f"{cfg.name}: {hl} Q heads a rank in groups of {g}")
     return (R.m * hl) // g, ((R.m + 1) * hl - 1) // g + 1, False
 
 
@@ -447,6 +476,21 @@ def _write_rows(c, new, cache_len, offset: int):
     if lo < hi:
         c[:, lo - offset:hi - offset] = new[:, lo - int(cache_len):
                                             hi - int(cache_len)]
+
+
+def _write_seq_split(kc, vc, k, v, cache_len, R) -> int:
+    """Write every KV head's new K/V rows into this rank's block of a
+    cache whose sequence is split over ``model`` (``init_cache`` refuses
+    a length the model axis does not divide); returns the block's first
+    position.  A prefill must start at 0: the prompt's own K/V are then
+    its whole prefix."""
+    if k.shape[1] != 1 and (not isinstance(cache_len, int) or cache_len):
+        raise NotImplementedError(
+            "a prefill into a sequence-split cache starts at 0")
+    offset = R.m * kc.shape[1]
+    _write_rows(kc, k, cache_len, offset)
+    _write_rows(vc, v, cache_len, offset)
+    return offset
 
 
 def decode_attention_seq(q, k, v, kv_len, offset: int, R):
@@ -523,20 +567,14 @@ def _attn_tp(cfg: ModelConfig, p: dict, x, positions, R, *, kv_cache=None,
                                    q_offset=cache_len, block=cfg.attn_block))
     else:
         # KV heads that do not split: the cache holds every KV head and a
-        # block of the sequence (``init_cache`` refuses a length that the
-        # model axis does not divide)
+        # block of the sequence
         kc, vc = kv_cache["k"], kv_cache["v"]
-        offset = R.m * kc.shape[1]
-        _write_rows(kc, k_all, cache_len, offset)
-        _write_rows(vc, v_all, cache_len, offset)
+        offset = _write_seq_split(kc, vc, k_all, v_all, cache_len, R)
         if S == 1:
             q_all = coll.gather_cat(q, g, R.M, 2)
             out = decode_attention_seq(q_all, kc, vc, cache_len, offset,
                                        R)[:, :, R.m * hl:(R.m + 1) * hl]
-        elif not isinstance(cache_len, int) or cache_len != 0:
-            raise NotImplementedError(
-                "a prefill into a sequence-split cache starts at 0")
-        else:       # the prompt's own K/V are the whole prefix
+        else:
             out = blockwise_attention(q, k, v, causal=True,
                                       block=cfg.attn_block)
     out = sh.shard(out, "batch", "seq", "heads", None, full=full_q)

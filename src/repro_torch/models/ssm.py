@@ -4,7 +4,10 @@
 The chunked SSD algorithm (arXiv:2405.21060 §6) splits the selective scan
 into intra-chunk attention-like products plus an inter-chunk state
 recurrence; the reference carries that recurrence, and the few-token
-decode recurrence, with ``lax.scan``, the port with a Python loop.  The
+decode recurrence, with ``lax.scan``, the port with a Python loop
+(``hlo_cost.loop``: under the cost counter on fake tensors one step,
+counted as many times as the loop runs, the reference's trip-count
+rule).  The
 decode state is O(1) in sequence length: ``h`` (B, H, hd, n) and the
 convolution's last K−1 inputs ``conv`` (B, K−1, C).  ``a_log``,
 ``dt_bias`` and ``d_skip`` stay float32 whatever the activation dtype.
@@ -17,7 +20,9 @@ and C (one group), the packed layout ``distributed/sharding.py`` calls
 C).  Every rank computes B and C, read by its heads only, so their
 weights' gradients are summed over ``model`` (``collectives.copy_to``).
 The norm over the d_in channels sums its squares over ``model``;
-``out_proj`` is row-parallel, one all-reduce.
+``out_proj`` is row-parallel, one all-reduce.  SSM heads that do not
+split the model axis (``ssm_replicated``) run whole on every rank, from
+whole weights and a whole state, the output added once.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import hlo_cost
 from repro_torch.distributed import sharding as sh
 from repro_torch.models.common import (ModelConfig, col_in, col_mm,
                                        dense_init, rmsnorm, row_out)
@@ -34,6 +40,14 @@ def ssm_dims(cfg: ModelConfig):
     d_in = cfg.ssm_expand * cfg.d_model
     nheads = d_in // cfg.ssm_head_dim
     return d_in, nheads, cfg.ssm_state
+
+
+def ssm_replicated(cfg: ModelConfig, M: int) -> bool:
+    """Whether the SSM heads do not split over a model axis of ``M``: the
+    layer then runs whole on every rank (the reference's ``constrain``
+    replicates them), its leaves and its cache placed whole over
+    ``model``."""
+    return M > 1 and ssm_dims(cfg)[1] % M != 0
 
 
 def ssm_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -86,7 +100,7 @@ def ssm_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, state=None):
     whole sequence.  Returns (y, new_state), new_state None without a
     state."""
     R = sh.ranks()
-    if R is not None and R.M > 1:
+    if R is not None and R.M > 1 and not ssm_replicated(cfg, R.M):
         return _ssm_tp(cfg, p, x, R, state)
     B, S, _ = x.shape
     d_in, nheads, nstate = ssm_dims(cfg)
@@ -120,14 +134,14 @@ def _scan(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt, state, conv_state):
         # the reference's lax.scan over tokens
         h = state["h"]                                            # (B,H,hd,n)
         ys = []
-        for t in range(S):
+        for t in hlo_cost.loop(S, "ssd_recurrence"):
             xt, bt, ct = xs[:, t], Bmat[:, t], Cmat[:, t]
             dh = torch.einsum("bhd,bn,bh->bhdn", xt, bt,
                               dt[:, t].to(xt.dtype))
             h = h * torch.exp(dA[:, t])[:, :, None, None].to(h.dtype) \
                 + dh.to(h.dtype)
             ys.append(torch.einsum("bhdn,bn->bhd", h, ct))
-        y = torch.stack(ys, dim=1)                                # (B,S,H,hd)
+        y = hlo_cost.stack(ys, S, dim=1)                          # (B,S,H,hd)
         new_state = {"h": h, "conv": conv_state}
     else:
         y = _ssd_chunked(cfg, xs, Bmat, Cmat, dA, dt)
@@ -168,9 +182,6 @@ def _ssm_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, R, state):
     B, S, _ = x.shape
     d_in, nheads, nstate = ssm_dims(cfg)
     hd = cfg.ssm_head_dim
-    if not R.split(nheads):
-        raise NotImplementedError(
-            f"{cfg.name}: {nheads} SSM heads on a model axis of {R.M}")
     g = R.model_group
     Hl, dl = nheads // R.M, d_in // R.M
 
@@ -248,10 +259,10 @@ def _ssd_chunked(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt):
     # the reference's lax.scan over chunks: h_prev of each chunk
     h = torch.zeros((B, H, hd, n), dtype=xs.dtype, device=xs.device)
     h_prevs = []
-    for c in range(nc):
+    for c in hlo_cost.loop(nc, "ssd_chunks"):
         h_prevs.append(h)
         h = h * chunk_decay[:, c, :, None, None].to(h.dtype) + st[:, c]
-    h_prevs = torch.stack(h_prevs, dim=1)                        # (B,nc,H,hd,n)
+    h_prevs = hlo_cost.stack(h_prevs, nc, dim=1)                 # (B,nc,H,hd,n)
     # inter-chunk: y += C_t · (decay_from_start · h_prev)
     decay_in = torch.exp(Aend)                                   # (B,nc,H,Q)
     y_inter = torch.einsum("bcqn,bchdn,bchq->bcqhd", C_c, h_prevs,

@@ -53,8 +53,8 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, attn_forward, attn_init,
-                                       dense_init, mlp_forward, mlp_init,
-                                       rmsnorm)
+                                       attn_replicated, dense_init,
+                                       mlp_forward, mlp_init, rmsnorm)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -151,7 +151,7 @@ def _block_forward(cfg: ModelConfig, p: dict, x, positions, *, frontend=None,
         B = x.shape[0]
         fe = frontend.to(p["kx"].dtype)
         R = sh.ranks()
-        if R is not None and R.M > 1:
+        if R is not None and R.M > 1 and not attn_replicated(cfg, R.M):
             kx, vx = _cross_kv(cfg, p, fe, R)
         else:
             kx = (fe @ p["kx"]).reshape(B, -1, cfg.kv_heads, cfg.hdim)

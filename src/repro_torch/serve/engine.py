@@ -216,14 +216,15 @@ def cache_shardings(rules, cache_shapes, seq_shard_kv: bool = False,
         falling back to sequence-sharded KV (SP) when KV doesn't divide;
       ssm h (nb, sub, B, H, hd, n): heads over model;
       ssm conv (nb, sub, B, K-1, C): channels over model (with ``cfg``, by
-        the packed x | B | C segments, ``models/ssm.py``).
+        the packed x | B | C segments, ``models/ssm.py``; whole when the
+        SSM heads do not split the model axis).
 
     seq_shard_kv=True additionally shards the KV sequence over the
     ``seq_data`` logical axis (unmapped by the default rules).  Returns a
     tree of Placements (None leaves without a mesh)."""
     from repro_torch.distributed.sharding import (logical_axis_size,
                                                   sanitize_spec)
-    from repro_torch.models.ssm import packed_segments
+    from repro_torch.models.ssm import packed_segments, ssm_replicated
     from repro_torch.tree import leaves_with_paths, unflatten
 
     def to_sh(path, leaf):
@@ -240,7 +241,10 @@ def cache_shardings(rules, cache_shapes, seq_shard_kv: bool = False,
             spec = [None, None, "batch", "heads", None, None][: leaf.ndim]
         elif path[-1] == "conv":
             spec = [None, None, "batch", None, "ff"]
-            if cfg is not None:
+            if cfg is not None and ssm_replicated(
+                    cfg, logical_axis_size(rules, "heads")):
+                spec[4] = None               # the layer runs whole
+            elif cfg is not None:
                 segments = (4, packed_segments(cfg, "conv_w"))
         else:
             spec = [None] * leaf.ndim

@@ -246,28 +246,43 @@ def _leaf_logical_axes(name: str, nd: int) -> tuple:
     return tuple(axes)
 
 
+#: logical axes that map to ``model`` in a block that runs whole there
+_MODEL_AXES = ("heads", "kv_heads", "ff")
+
+
+def _whole_on_model(cfg: ModelConfig, path: tuple, rules) -> bool:
+    """Whether the leaf at ``path`` belongs to a sub-layer that runs whole
+    on every model rank: attention (self or cross) whose heads do not
+    split the model axis, an SSM layer whose heads do not."""
+    from repro_torch.distributed.sharding import logical_axis_size
+    from repro_torch.models.common import attn_replicated
+    from repro_torch.models.ssm import ssm_replicated
+    M = logical_axis_size(rules, "heads")
+    if "attn" in path or "cross" in path or path[-1] in ("kx", "vx"):
+        return attn_replicated(cfg, M)
+    return "ssm" in path and ssm_replicated(cfg, M)
+
+
 def leaf_placement(cfg: ModelConfig, path: tuple, shape, rules):
     """The :class:`~repro_torch.distributed.sharding.Placement` of one
     leaf of the port's tree: the reference's rule for its name and rank
     (a block's leaf is the reference's stacked leaf without its leading
     ``layers`` axis, which is replicated), axes that do not divide
-    dropped; a packed SSM leaf split over ``model`` by its segments."""
+    dropped; a packed SSM leaf split over ``model`` by its segments.  A
+    leaf of a sub-layer whose heads do not split the model axis is whole
+    over ``model`` (``_whole_on_model``; the reference keeps such a
+    weight's even column split, a layout its compiler gathers)."""
     from repro_torch.distributed.sharding import sanitize_spec
     from repro_torch.models.ssm import packed_segments
     name = str(path[-1]) if path else ""
-    logical = sanitize_spec(rules, _leaf_logical_axes(name, len(shape)),
-                            shape)
+    axes = _leaf_logical_axes(name, len(shape))
+    if _whole_on_model(cfg, path, rules):
+        axes = tuple(None if ax in _MODEL_AXES else ax for ax in axes)
+    logical = sanitize_spec(rules, axes, shape)
     spec = rules.spec(*logical)
     segments = None
     if name in _PACKED and spec and spec[-1] is not None:
         segments = (len(shape) - 1, packed_segments(cfg, name))
-        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
-        n = rules.mesh.size(spec[-1] if isinstance(spec[-1], tuple)
-                            else (spec[-1],))
-        if heads % n:
-            raise NotImplementedError(
-                f"{name}: {heads} SSM heads do not split {n} ways, so its "
-                f"packed columns cannot follow the heads")
     return rules.sharding(*logical, segments=segments)
 
 

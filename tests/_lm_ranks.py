@@ -286,3 +286,42 @@ def on_1x4() -> dict:
                                     for g, t in cache.items()}
         out[arch, "tokens"] = batcher_tokens(cfg, p)
     return out
+
+
+def heads_config(kind: str):
+    """Float32 smoke configs whose heads do not divide a model axis of 4:
+    the dense one with 6 Q and 3 KV heads, the SSM one with 6 SSM heads
+    (d_model 48, head_dim 16)."""
+    if kind == "dense":
+        return dataclasses.replace(f32(DENSE), d_model=48, num_heads=6,
+                                   num_kv_heads=3)
+    return dataclasses.replace(f32(SSM), d_model=48)
+
+
+def on_1x4_heads() -> dict:
+    """(data 1 × model 4) with ``heads_config``: forward, serving, the
+    batcher, the collectives of a decode step, one train step, and the
+    local shapes of the attention / SSM leaves (whole over ``model``)."""
+    mesh = _mesh(4)
+    out = {}
+    for kind in ("dense", "ssm"):
+        cfg = heads_config(kind)
+        p = params(cfg)
+        with torch.no_grad():
+            out[kind, "forward"] = tf.forward(cfg, p, tokens(cfg))[0]
+        steps = make_sharded_serve_steps(cfg, mesh, p, B, L)
+        out[kind, "serve"], _ = serve_steps(cfg, p, steps)
+        out[kind, "tokens"] = batcher_tokens(cfg, p)
+        cache = tf.init_cache(cfg, B, L, device=CPU)
+        with torch.no_grad():
+            _, cache = steps[0](p, tokens(cfg)[:, :S], cache)
+            collectives.reset()
+            steps[1](p, tokens(cfg)[:, S:S + 1], cache, S)
+        out[kind, "decode_counts"] = dict(collectives.COUNTS)
+        blk = p["layers"][0]
+        sub = (blk["attn_layers"][0]["attn"] if kind == "dense"
+               else blk["ssm"][0])
+        out[kind, "local"] = {k: tuple(t.shape) for k, t in sub.items()}
+        _, ms = train(cfg, tcfg(), 1)
+        out[kind, "train"] = ms
+    return out

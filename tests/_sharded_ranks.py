@@ -347,3 +347,21 @@ def mesh_or_refusal() -> str:
     except RuntimeError as e:
         return str(e)
     return "mesh"
+
+
+def sharded_collectives_1x2() -> dict:
+    """(data 1 × model 2): ``CompiledHLT.sharded_collectives`` of the σ /
+    τ batch of a toy hemm (seed 11) beside the plan's reckoned bytes."""
+    mesh = _mesh(2)
+    rng = np.random.default_rng(11)
+    ctx = HEContext(CkksEngine(toy_params(logN=6, L=4, k=3, beta=2),
+                               device=CPU), mesh=mesh)
+    plan = plan_hemm(ctx.eng, 4, 3, 5)
+    ctx.keygen(rng, rot_steps=plan.rot_steps)
+    ctA, ctB = _pair(ctx, rng)
+    run = compile_hlt(ctx, [plan.ds_sigma, plan.ds_tau], level=ctA.level,
+                      schedule="sharded")
+    stats = run.sharded_collectives([ctA, ctB])
+    return dict(total=stats.total_bytes, by_op=stats.by_op,
+                count=stats.count, largest=stats.largest,
+                plan=run.plan.collective_bytes)
