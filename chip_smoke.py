@@ -233,7 +233,15 @@ Phases, each printing its lines before the last:
    state and peak memory a rank.  Four ranks (data 2 × model 2): the
    dense, MoE and SSM smoke configs in float32, serving (logits, the
    gathered cache, tokens) and 2 train steps with 2 microbatches against
-   one device on ``cuda``;
+   one device on ``cuda``; then one train step of the MoE smoke config
+   with 64 tokens a dispatch group, so a data rank's rows are whole
+   groups: loss and state equal one device's, and no byte gathered over
+   the batch axes inside the MoE.  The same four ranks as (data 1 ×
+   model 4): the MoE smoke config (2 KV heads) serving from a cache of
+   30 positions (4 does not divide it: 8 a rank), prompts prefilled in
+   chunks of 6 and 5 (the second from ``cache_len`` 6), then 3 greedy
+   decode steps: tokens equal, logits and the gathered cache within 1e-4
+   of one device;
 3k. costs — the compile-time cost reports.  ``launch/dryrun.py`` runs in
    a subprocess started with phase 3i, beside 3i–3j and phase 4 (its
    ``"fake"`` process group never meets the gloo groups of 3i / 3j; it
@@ -3939,7 +3947,7 @@ def lm_serve_steps(cfg, params, steps, device, batch: int, max_len: int):
 
 def one_device_serve_steps(cfg):
     from repro_torch.serve.engine import serve_decode_step, serve_prefill_step
-    return (lambda p, t, c: serve_prefill_step(cfg, p, t, c),
+    return (lambda p, t, c, start=0: serve_prefill_step(cfg, p, t, c, start),
             lambda p, t, c, q: serve_decode_step(cfg, p, t, c, q))
 
 
@@ -4039,6 +4047,164 @@ def lm_smoke_run(arch: str, device, steps_fn=None) -> dict:
     return out
 
 
+def lm_moe_groups_run(device) -> dict:
+    """Phase 3j (a): one train step of the ``LM_MESH_MOE`` smoke config in
+    float32 with ``LM_MESH_GROUP`` tokens a dispatch group, so that a data
+    rank's rows of the global batch (4 × 64 tokens: 2 rows a rank on
+    data 2) are whole groups, on one device or this rank of the current
+    mesh (its rows): the metrics, the state (gathered whole) and the
+    bytes of every all-gather over the batch axes inside ``moe_forward``
+    (forward and the backward's recompute)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, device_batch, synth_batch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_smoke_config(LM_MESH_MOE), dtype="float32")
+    tcfg = ts.TrainConfig(opt=OptConfig(**TRAIN_OPT))
+    R = sh.ranks()
+    b = device_batch(cfg, synth_batch(cfg, DataConfig(
+        global_batch=4, seq_len=64), 0), device)
+    if R is not None and R.D > 1:
+        b = {k: v.chunk(R.D)[R.d] for k, v in b.items()}
+    gathers, inside = [], [0]
+    saved = moe.moe_forward, collectives.all_gather, moe.GROUP
+
+    def counted_forward(*args, **kw):
+        inside[0] += 1
+        try:
+            return saved[0](*args, **kw)
+        finally:
+            inside[0] -= 1
+
+    def counted_gather(t, group, size):
+        if inside[0] and R is not None and group is R.batch_group:
+            gathers.append(size * t.numel() * t.element_size())
+        return saved[1](t, group, size)
+    moe.moe_forward, collectives.all_gather = counted_forward, counted_gather
+    moe.GROUP = LM_MESH_GROUP
+    try:
+        state = ts.init_train_state(
+            cfg, tcfg, torch.Generator(device=device).manual_seed(0))
+        state, m = ts.train_step(cfg, tcfg, state, b)
+    finally:
+        moe.moe_forward, collectives.all_gather, moe.GROUP = saved
+    if R is not None:
+        pl = ts.param_shardings(cfg, ts.abstract_train_state(cfg, tcfg),
+                                sh.get_rules())
+        state = [q.gather(t) for t, q in zip(leaves(state), leaves(pl))]
+    else:
+        state = leaves(state)
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                state=[t.float().cpu() for t in state], gathers=gathers)
+
+
+def lm_odd_cache_run(device, steps_fn=None) -> dict:
+    """Phase 3j (b): the ``LM_MESH_MOE`` smoke config in float32 (its 2 KV
+    heads do not split a model axis of 4) serving 4 seeded prompts from a
+    cache of ``LM_MESH_ODD_L`` positions (4 does not divide it): each
+    prompt prefilled in the ``LM_MESH_CHUNKS`` chunks, the second from
+    ``cache_len`` = the first's length, then ``LM_MESH_ODD_NEW`` greedy
+    decode steps; on one device or this rank of the current mesh
+    (``steps_fn`` makes its sharded steps): the greedy tokens, every
+    step's logits, the cache (gathered whole) and the rank's block's
+    shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_smoke_config(LM_MESH_MOE), dtype="float32")
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    batch, n0 = 4, LM_MESH_CHUNKS[0]
+    steps = (steps_fn(cfg, params, batch, LM_MESH_ODD_L) if steps_fn
+             else one_device_serve_steps(cfg) + (None,))
+    prefill, decode, pl = steps
+    tok = torch.as_tensor(np.random.default_rng(LM_MESH_SEED).integers(
+        0, cfg.vocab_size, (batch, sum(LM_MESH_CHUNKS))), device=device)
+    cache = tf.init_cache(cfg, batch, LM_MESH_ODD_L, device=device)
+    logits, new = [], []
+    with torch.no_grad():
+        _, cache = prefill(params, tok[:, :n0], cache)
+        lg, cache = prefill(params, tok[:, n0:], cache, start=n0)
+        pos = sum(LM_MESH_CHUNKS)
+        for _ in range(LM_MESH_ODD_NEW):
+            logits.append(lg.float().cpu())
+            nxt = lg[:, -1].argmax(-1, keepdim=True)
+            new.append(nxt.cpu())
+            lg, cache = decode(params, nxt, cache, pos)
+            pos += 1
+        logits.append(lg.float().cpu())
+    local = tuple(cache["kv"]["k"].shape)
+    if pl is not None:
+        cache = {g: {n: pl[g][n].gather(c) for n, c in t.items()}
+                 for g, t in cache.items()}
+    return dict(tokens=torch.cat(new, 1).tolist(), logits=logits,
+                local=local, cache={g: {n: c.float().cpu()
+                                        for n, c in t.items()}
+                                    for g, t in cache.items()})
+
+
+def check_moe_groups(r: dict, want: dict) -> None:
+    """Phase 3j (a) on a rank of (data 2 × model 2) against one device:
+    the metrics within LM_MESH_SMOKE_TOL, the state within it but for at
+    most LM_MESH_FLIPS of its entries, no byte gathered over the batch
+    axes inside the MoE."""
+    got = r["moe_groups"]
+    err = max(abs(got["metrics"][k] - w) / max(1.0, abs(w))
+              for k, w in want["metrics"].items())
+    far = sum(int(((g - w).abs() > LM_MESH_SMOKE_TOL).sum())
+              for g, w in zip(got["state"], want["state"], strict=True))
+    total = sum(w.numel() for w in want["state"])
+    if got["gathers"] or err > LM_MESH_SMOKE_TOL or \
+            far > LM_MESH_FLIPS * total:
+        raise AssertionError(f"[lm-mesh-groups] rank {r['rank']}: MoE "
+                             f"gathers over the batch axes {got['gathers']},"
+                             f" metrics error {err}, state entries off {far}"
+                             f" of {total}")
+    log(f"[lm-mesh-groups] rank {r['rank']} {r['coords']} {LM_MESH_MOE} "
+        f"(float32 smoke, {LM_MESH_GROUP} tokens a dispatch group: 2 whole "
+        f"groups a data rank): one train step, loss "
+        f"{got['metrics']['loss']:.6f}, aux {got['metrics']['aux_loss']:.6f};"
+        f" metrics max relative err {err:.3e} (bound {LM_MESH_SMOKE_TOL}); "
+        f"state max err {_max_err(got['state'], want['state']):.3e}, {far} "
+        f"of {total} entries past the bound; bytes the MoE gathered over "
+        f"the batch axes: {sum(got['gathers'])} in {len(got['gathers'])} "
+        f"all-gathers")
+
+
+def check_odd_cache(r: dict, want: dict) -> None:
+    """Phase 3j (b) on a rank of (data 1 × model 4) against one device:
+    the greedy tokens equal, the logits and the gathered cache within
+    LM_MESH_SMOKE_TOL, a rank's block ⌈LM_MESH_ODD_L / 4⌉ positions."""
+    got = r["odd"]
+    errs = dict(logits=_max_err(got["logits"], want["logits"]),
+                cache=max(float((got["cache"][g][n] - c).abs().max())
+                          for g, t in want["cache"].items()
+                          for n, c in t.items()))
+    shapes = all(got["cache"][g][n].shape == c.shape
+                 for g, t in want["cache"].items() for n, c in t.items())
+    block = -(-LM_MESH_ODD_L // 4)
+    if got["tokens"] != want["tokens"] or not shapes or \
+            got["local"][3] != block or \
+            not all(e <= LM_MESH_SMOKE_TOL for e in errs.values()):
+        raise AssertionError(f"[lm-mesh-odd] rank {r['rank']}: tokens equal "
+                             f"{got['tokens'] == want['tokens']}, errors "
+                             f"{errs}, whole shapes equal {shapes}, local "
+                             f"{got['local']}")
+    log(f"[lm-mesh-odd] rank {r['rank']} {r['odd_coords']} {LM_MESH_MOE} "
+        f"(float32 smoke, 2 KV heads on model 4): a cache of "
+        f"{LM_MESH_ODD_L} positions, {block} a rank (block {got['local']}), "
+        f"prompts prefilled in chunks of {list(LM_MESH_CHUNKS)} (the second "
+        f"from cache_len {LM_MESH_CHUNKS[0]}), {LM_MESH_ODD_NEW} greedy "
+        f"decode steps: tokens equal to one device's; logits / gathered "
+        f"cache max err {errs['logits']:.3e} / {errs['cache']:.3e} (bound "
+        f"{LM_MESH_SMOKE_TOL})")
+
+
 @contextlib.contextmanager
 def collective_clock(seconds: list):
     """``torch.distributed.all_reduce`` / ``all_gather`` timed on the host
@@ -4099,7 +4265,8 @@ def lm_mesh_rank(spec: dict) -> dict:
     ``launch/train.py`` ``--tp 2``: ``LM_MESH_TRAIN_STEPS`` steps of
     ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens, each timed.  ``smoke``: on
     (data 2 × model 2), ``lm_smoke_run`` of each ``LM_MESH_SMOKE``
-    config."""
+    config and ``lm_moe_groups_run``, then on the same ranks as (data 1 ×
+    model 4) ``lm_odd_cache_run``."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4127,6 +4294,15 @@ def lm_mesh_rank(spec: dict) -> dict:
     if spec["kind"] == "smoke":
         for arch in LM_MESH_SMOKE:
             out[arch] = lm_smoke_run(arch, dev, sharded_steps)
+        out["moe_groups"] = lm_moe_groups_run(dev)
+        # the same ranks as (data 1 × model 4): no second spawn
+        mesh4 = make_mesh_for(dist.get_world_size(), 4,
+                              device=spec["device"], backend="gloo")
+        sh.set_rules(sh.make_rules(mesh4))
+        out["odd"] = lm_odd_cache_run(
+            dev, lambda cfg, params, batch, max_len: make_sharded_serve_steps(
+                cfg, mesh4, params, batch, max_len))
+        out["odd_coords"] = dict(mesh4.coords)
         return out
 
     # float32 at full width: the one-device run's logits and tokens
@@ -4300,8 +4476,13 @@ def phase_lm_mesh(first_loss: float, device: str = "cuda") -> dict:
     steps (step 1's loss within LM_MESH_LOSS_RTOL of phase 3h's one-device
     first loss ``first_loss``), and four ranks (data 2 × model 2) the
     smoke configs, serving and training, against one device, all on
-    ``device``.  Returns rank 0's kernel launches in the secure run on the
-    LM's mesh."""
+    ``device``, with one train step of the MoE smoke config whose rows a
+    data rank are whole dispatch groups (``lm_moe_groups_run``: no
+    gather over the batch axes inside the MoE); then the same four ranks
+    as (data 1 × model 4) serve the MoE smoke config from a cache whose
+    length 4 does not divide, a prompt prefilled in two chunks
+    (``lm_odd_cache_run``).  Returns rank 0's kernel launches in the
+    secure run on the LM's mesh."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.mesh import spawn
@@ -4322,6 +4503,8 @@ def phase_lm_mesh(first_loss: float, device: str = "cuda") -> dict:
     want_secure = lm_mesh_secure(smoke, ps, None, device)
     del ps
     want_smoke = {arch: lm_smoke_run(arch, device) for arch in LM_MESH_SMOKE}
+    want_groups = lm_moe_groups_run(device)
+    want_odd = lm_odd_cache_run(device)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[lm-mesh] one-device references (full width f32, the secure toy, "
@@ -4423,6 +4606,8 @@ def phase_lm_mesh(first_loss: float, device: str = "cuda") -> dict:
     for r in outs4:
         for arch in LM_MESH_SMOKE:
             check_lm_smoke(r, want_smoke[arch], arch)
+        check_moe_groups(r, want_groups)
+        check_odd_cache(r, want_odd)
     log("[lm-mesh] these times are of ranks that time-share one card "
         "through a host-side collective: not a multi-GPU speed")
     return outs[0]["secure"]["launches"]
@@ -4932,6 +5117,12 @@ LM_MESH_SMOKE_TOL = 1e-4
 LM_MESH_FLIPS = 1e-3
 LM_MESH_SMOKE_STEPS = 2
 LM_MESH_TOY = dict(logN=6, L=4, k=3, beta=2)
+#: phase 3j (a) and (b): the MoE smoke config; a dispatch group of 64
+#: tokens makes a data rank's 2 rows of 64 whole groups; a cache of 30
+#: positions (4 does not divide it), prompts of 6 + 5 tokens, 3 new
+LM_MESH_MOE = "granite-moe-3b-a800m"
+LM_MESH_GROUP = 64
+LM_MESH_ODD_L, LM_MESH_CHUNKS, LM_MESH_ODD_NEW = 30, (6, 5), 3
 
 #: kernels whose path is the kernel API (``phase_api``), not the hemm
 API_KERNELS = ("fused_hlt_batched", "baseconv", "modmul", "modadd")

@@ -33,6 +33,14 @@ segments; here a rank holds its heads' part of each head-split segment
 (z, x, dt) and the whole of each replicated one (B and C, one group), so
 its products stay local.  ``local`` and ``gather`` still round-trip the
 whole leaf.
+
+One dimension may also split *unevenly* (``Placement.ceil``): the serve
+cache's sequence, when the KV heads do not split the model axis and the
+model axis does not divide the cache's length.  The reference drops such
+an axis (the whole cache on every rank); here a rank holds a block of
+⌈L / n⌉ positions, the last rank's tail past L padding that is never
+written, so a rank keeps the memory the sequence split exists for.
+``gather`` returns exactly the first L positions.
 """
 from __future__ import annotations
 
@@ -96,13 +104,14 @@ class ShardingRules:
     def _axis_in_mesh(self, axis: str) -> bool:
         return self.mesh is None or axis in self.mesh.axis_names
 
-    def sharding(self, *logical, segments=None) -> Optional["Placement"]:
+    def sharding(self, *logical, segments=None,
+                 ceil=None) -> Optional["Placement"]:
         """The :class:`Placement` of ``logical`` on the mesh (None without
-        a mesh).  ``segments``: a packed dimension's layout (see
-        :class:`Placement`)."""
+        a mesh).  ``segments``: a packed dimension's layout, ``ceil`` an
+        uneven one (see :class:`Placement`)."""
         if self.mesh is None:
             return None
-        return Placement(self.mesh, self.spec(*logical), segments)
+        return Placement(self.mesh, self.spec(*logical), segments, ceil)
 
     def constrain(self, x, *logical, full=None):
         """The reference's ``with_sharding_constraint``: a no-op without a
@@ -138,14 +147,21 @@ class Placement:
     ``PartitionSpec``), and a rank holds the block of its coordinates.
     ``segments``, when set, is ``(dim, ((size, split), ...))``: dimension
     ``dim`` packs segments of those sizes, and a rank holds its block of
-    each ``split`` one and the whole of each other (module docstring)."""
+    each ``split`` one and the whole of each other (module docstring).
+    ``ceil``, when set, is ``(dim, length)``: dimension ``dim``, of
+    ``length`` whole, splits in blocks of ⌈length / n⌉, the last ranks'
+    positions past ``length`` zero padding."""
     mesh: object
     spec: tuple
     segments: Optional[tuple] = None
+    ceil: Optional[tuple] = None
 
     def _axes(self, dim: int) -> tuple:
         ax = self.spec[dim]
         return (ax,) if isinstance(ax, str) else tuple(ax)
+
+    def _uneven(self, dim: int) -> bool:
+        return self.ceil is not None and self.ceil[0] == dim
 
     def local_shape(self, shape) -> tuple:
         out = list(shape)
@@ -156,6 +172,8 @@ class Placement:
             if self.segments is not None and self.segments[0] == dim:
                 out[dim] = sum(size // n if split else size
                                for size, split in self.segments[1])
+            elif self._uneven(dim):
+                out[dim] = -(-out[dim] // n)
             else:
                 out[dim] //= n
         return tuple(out)
@@ -174,6 +192,10 @@ class Placement:
                                for p, (_, split) in zip(parts,
                                                         self.segments[1])],
                               dim=dim)
+            elif self._uneven(dim):
+                pad = list(t.shape)
+                pad[dim] = -t.shape[dim] % n
+                t = torch.cat([t, t.new_zeros(pad)], dim).chunk(n, dim)[i]
             else:
                 if t.shape[dim] % n:
                     raise ValueError(f"dimension {dim} of {tuple(full.shape)}"
@@ -206,6 +228,8 @@ class Placement:
                     dim=dim)
             else:
                 t = torch.cat(blocks, dim=dim)
+                if self._uneven(dim):
+                    t = t.narrow(dim, 0, self.ceil[1])
         return t
 
 

@@ -13,17 +13,18 @@ row-parallel with one all-reduce over ``model`` after it
 model axis the reference replicates K/V while the Q heads stay split: a
 rank then computes every KV head and attends with those its local Q
 heads read; the serve cache holds a block of the sequence instead
-(``seq_sp``), and a decode step combines the ranks' partial softmaxes
+(``seq_sp``, in blocks of ⌈L / model⌉), and a decode step, or a prefill
+chunk that starts past position 0, combines the ranks' partial softmaxes
 (flash-decoding: the maximum, then the sums, all-reduced).  When the Q
 heads do not divide the model axis, or a rank's Q heads would not group
 evenly over the KV heads (``attn_replicated``), the reference's
 ``constrain`` drops the axis and replicates the heads: every rank then
 holds the whole ``wq`` / ``wk`` / ``wv`` / ``wo``, computes every head
 with the one-device code and adds the block's output once, with no
-all-reduce over ``model`` (a decode step still combines the ranks'
-partial softmaxes over the sequence-split cache).  The reference's
-``shard`` constraints are called at its points and check the local
-shapes.  Without a mesh every layer runs the one-device code.
+all-reduce over ``model`` (a decode step or a later prefill chunk still
+combines the ranks' partial softmaxes over the sequence-split cache).
+The reference's ``shard`` constraints are called at its points and check
+the local shapes.  Without a mesh every layer runs the one-device code.
 """
 from __future__ import annotations
 
@@ -360,12 +361,13 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     kc, vc = kv_cache["k"], kv_cache["v"]
     if R is not None:
         # heads replicated over model: every KV head, a block of the
-        # sequence; a decode step combines the ranks' partial softmaxes
+        # sequence; a prefill from 0 attends to its own K/V, anything
+        # later combines the ranks' partial softmaxes over the cache
         offset = _write_seq_split(kc, vc, k, v, cache_len, R)
-        out = (decode_attention_seq(q, kc, vc, cache_len, offset, R)
-               if S == 1 else
-               blockwise_attention(q, k, v, causal=True,
-                                   block=cfg.attn_block))
+        out = (blockwise_attention(q, k, v, causal=True,
+                                   block=cfg.attn_block)
+               if S > 1 and _from_zero(cache_len) else
+               decode_attention_seq(q, kc, vc, cache_len, offset, R))
         return out.reshape(B, S, h * hd) @ p["wo"], kv_cache
     if isinstance(cache_len, torch.Tensor) and cache_len.ndim:
         if S != 1:
@@ -478,15 +480,17 @@ def _write_rows(c, new, cache_len, offset: int):
                                             hi - int(cache_len)]
 
 
+def _from_zero(cache_len) -> bool:
+    """Whether a prefill starts at position 0 (its own K/V are then its
+    whole prefix)."""
+    return not isinstance(cache_len, torch.Tensor) and int(cache_len) == 0
+
+
 def _write_seq_split(kc, vc, k, v, cache_len, R) -> int:
     """Write every KV head's new K/V rows into this rank's block of a
-    cache whose sequence is split over ``model`` (``init_cache`` refuses
-    a length the model axis does not divide); returns the block's first
-    position.  A prefill must start at 0: the prompt's own K/V are then
-    its whole prefix."""
-    if k.shape[1] != 1 and (not isinstance(cache_len, int) or cache_len):
-        raise NotImplementedError(
-            "a prefill into a sequence-split cache starts at 0")
+    cache whose sequence is split over ``model`` (blocks of ⌈L / model⌉,
+    rows outside the block dropped); returns the block's first
+    position."""
     offset = R.m * kc.shape[1]
     _write_rows(kc, k, cache_len, offset)
     _write_rows(vc, v, cache_len, offset)
@@ -494,19 +498,23 @@ def _write_seq_split(kc, vc, k, v, cache_len, R) -> int:
 
 
 def decode_attention_seq(q, k, v, kv_len, offset: int, R):
-    """``decode_attention`` over a cache whose sequence is split over
+    """Attention of S queries over a cache whose sequence is split over
     ``model`` (this rank holds positions [offset, offset + S_loc)), for
-    ALL Q heads: each rank's partial maximum, sum and output, then the
-    maximum and the two sums all-reduced (flash-decoding).  q: (B, 1, H,
-    D), k / v: (B, S_loc, KV, D)."""
-    B, _, H, D = q.shape
+    ALL Q heads: query i sits at position ``kv_len + i`` and reads the
+    keys at positions up to its own; each rank's partial maximum, sum and
+    output, then the maximum and the two sums all-reduced
+    (flash-decoding).  q: (B, S, H, D), k / v: (B, S_loc, KV, D);
+    ``kv_len`` an int, or with S == 1 a (B,) tensor (each slot's
+    position)."""
+    B, S, H, D = q.shape
     S_loc, KV = k.shape[1], k.shape[2]
-    qg = q.reshape(B, 1, KV, H // KV, D)
+    qg = q.reshape(B, S, KV, H // KV, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (1.0 / math.sqrt(D))
     kpos = offset + torch.arange(S_loc, device=q.device)
     kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(B)
-    mask = kpos[None, :] > kv_len[:, None]
-    s = s.masked_fill(mask[:, None, None, None, :], -1e30)
+    qpos = kv_len[:, None] + torch.arange(S, device=q.device)    # (B, S)
+    mask = kpos[None, None, :] > qpos[:, :, None]                # (B, S, S_loc)
+    s = s.masked_fill(mask[:, None, None], -1e30)
     m = coll.all_reduce_max(s.amax(dim=-1, keepdim=True), R.model_group)
     p = torch.exp(s - m)
     l_o = torch.cat([p.sum(dim=-1, keepdim=True),
@@ -514,7 +522,7 @@ def decode_attention_seq(q, k, v, kv_len, offset: int, R):
                                   v).float()], dim=-1)
     l_o = coll.all_reduce_sum(l_o, R.model_group)
     out = (l_o[..., 1:] / l_o[..., :1]).to(v.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
 
 
 def _attn_tp(cfg: ModelConfig, p: dict, x, positions, R, *, kv_cache=None,
@@ -570,12 +578,12 @@ def _attn_tp(cfg: ModelConfig, p: dict, x, positions, R, *, kv_cache=None,
         # block of the sequence
         kc, vc = kv_cache["k"], kv_cache["v"]
         offset = _write_seq_split(kc, vc, k_all, v_all, cache_len, R)
-        if S == 1:
+        if S > 1 and _from_zero(cache_len):
+            out = blockwise_attention(q, k, v, causal=True,
+                                      block=cfg.attn_block)
+        else:       # every rank's partials are of every Q head
             q_all = coll.gather_cat(q, g, R.M, 2)
             out = decode_attention_seq(q_all, kc, vc, cache_len, offset,
                                        R)[:, :, R.m * hl:(R.m + 1) * hl]
-        else:
-            out = blockwise_attention(q, k, v, causal=True,
-                                      block=cfg.attn_block)
     out = sh.shard(out, "batch", "seq", "heads", None, full=full_q)
     return row_out(out.reshape(B, S, hl * hd), p["wo"], g), kv_cache

@@ -18,10 +18,17 @@ rank, as on one device; a rank then runs its experts over all tokens, and
 the combine, a partial sum over experts, takes one all-reduce over
 ``model``.  When the experts do not divide the model axis the reference
 splits ``ff`` instead (each expert column-/row-parallel, the same
-all-reduce).  When the batch is split over ``data`` the dispatch groups
-span the ranks' rows, so a rank gathers the group's tokens over the
-batch axes first (backward: a reduce-scatter) and keeps its own rows of
-the output; the aux loss is then the global batch's on every rank.
+all-reduce).  When the batch is split over ``data`` (pod × data) and a
+rank's rows hold whole groups of the global batch's group size, the rank
+routes and runs its own groups only, the reference's
+``shard(xt, "batch", ...)``: the same tokens make the same groups, so
+the routing, the capacity drops and the outputs are one device's.  The
+aux loss stays the global batch's: the two (E,) means are summed over the
+batch axes (``sum_over``: forward and backward all-reduce) before their
+product.  When a group spans the ranks' rows (a decode step, where the
+batch is one group), a rank gathers the tokens over the batch axes first
+(backward: a reduce-scatter), routes every group and keeps its own rows
+of the output.
 """
 from __future__ import annotations
 
@@ -130,16 +137,19 @@ def _moe_mesh(cfg: ModelConfig, p: dict, x: torch.Tensor, R):
     E = cfg.num_experts
     gm = R.model_group
     split_rows = R.D > 1 and sh.is_batch_split()
-    if split_rows:       # the dispatch groups span the ranks' rows
+    g = min(GROUP, B * S * (R.D if split_rows else 1))
+    own = split_rows and (B * S) % g == 0     # this rank's rows: whole groups
+    gather = split_rows and not own           # the groups span the ranks' rows
+    if gather:
         x = coll.gather_fsdp(x, R.batch_group, R.D, R.d, 0)
     Bg = x.shape[0]
     T = Bg * S
-    g = min(GROUP, T)
     if T % g:
         raise ValueError(f"{T} tokens do not split into groups of {g}")
     G = T // g
     xt = x.reshape(G, g, d)
-    xt = sh.shard(xt, "batch", None, None, full=(None, g, d))
+    xt = sh.shard(xt, "batch", None, None,
+                  full=(G * R.D if own else None, g, d))
     es = R.split(E)                         # experts over model
     fs = not es and R.split(cfg.d_ff)       # else each expert's ff
     xc = col_in(xt, gm) if es or fs else xt
@@ -185,10 +195,14 @@ def _moe_mesh(cfg: ModelConfig, p: dict, x: torch.Tensor, R):
     else:
         y = torch.einsum("gecd,gtec->gtd", ye, comb)
     y = y.reshape(Bg, S, d)
-    if split_rows:
+    if gather:
         y = y[R.d * B:(R.d + 1) * B]
 
     density = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
     density_proxy = probs.mean(dim=(0, 1))
+    if own:     # the global means: every data rank holds G of the D·G groups
+        both = coll.sum_over(torch.stack([density, density_proxy]),
+                             R.batch_group) / R.D
+        density, density_proxy = both[0], both[1]
     aux = E * torch.sum(density * density_proxy)
     return y, aux

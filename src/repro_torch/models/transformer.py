@@ -15,7 +15,7 @@ Public entry points:
   forward(cfg, params, tokens|embeds, frontend=) -> (logits, aux)
   train_loss(cfg, params, batch)                 -> (total, metrics)
   init_cache(cfg, batch, max_len, device)        -> serve cache dict
-  prefill(cfg, params, tokens|embeds, cache)     -> (logits_last, cache)
+  prefill(cfg, params, tokens|embeds, cache, start=0) -> (logits_last, cache)
   decode_step(cfg, params, token, cache, pos)    -> (logits, cache)
   decode_step_embeds(cfg, params, embeds, cache, pos) -> (logits, cache)
 
@@ -432,17 +432,11 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 def _init_cache_mesh(cfg: ModelConfig, batch: int, max_len: int, dev):
     """A rank's blocks of the zeroed serve cache.  A cache whose KV heads
-    do not split over ``model`` holds a block of the sequence, which the
-    model axis must divide."""
-    R = sh.ranks()
+    do not split over ``model`` holds a block of the sequence: ⌈max_len /
+    model⌉ positions, the last rank's tail past ``max_len`` never written
+    and masked by the attention's key positions."""
     shapes = _cache_shapes(cfg, batch, max_len)
     pl = cache_placements(cfg, batch, max_len)
-    if "kv" in shapes and R.M > 1 and not R.split(cfg.kv_heads) \
-            and not R.split(max_len):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.kv_heads} KV heads and a cache of {max_len} "
-            f"positions on a model axis of {R.M}: the port splits the cache's"
-            f" sequence, which must divide")
     cache = {g: {n: torch.zeros(pl[g][n].local_shape(t.shape), dtype=t.dtype,
                                 device=dev) for n, t in tree.items()}
              for g, tree in shapes.items()}
@@ -465,13 +459,15 @@ def _serve_scan(cfg, params, x, positions, cache, cache_len, frontend=None):
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, cache: dict, *,
-            embeds=None, frontend=None):
-    """tokens (B, S) or embeds (B, S, d): fill cache rows [0, S) and run
-    the SSD recurrence from the cache's state; logits of the last
-    position (B, 1, V) and the cache."""
+            embeds=None, frontend=None, start: int = 0):
+    """tokens (B, S) or embeds (B, S, d): fill cache rows [start, start +
+    S) (a prompt in chunks: each from where the last ended) and run the
+    SSD recurrence from the cache's state; logits of the last position
+    (B, 1, V) and the cache."""
     x = _embed(cfg, params, tokens, embeds)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, cache = _serve_scan(cfg, params, x, positions, cache, 0,
+    positions = torch.arange(start, start + x.shape[1],
+                             device=x.device)[None, :]
+    x, cache = _serve_scan(cfg, params, x, positions, cache, start,
                            frontend=frontend)
     return _logits(cfg, params, x[:, -1:]), cache
 

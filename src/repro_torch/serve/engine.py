@@ -19,7 +19,8 @@ ranks.
 On a mesh (the current rules of ``distributed/sharding.py``) the model
 runs on a rank's blocks (``models/``) and the cache holds a rank's blocks
 of ``cache_shardings``: the batch over the batch axes, the KV heads over
-``model`` (or the sequence, ``seq_sp``, when they do not divide it), the
+``model`` (or the sequence, ``seq_sp``, when they do not divide it: in
+blocks of ⌈L / model⌉ when the model axis does not divide L), the
 SSM state's heads and the conv channels (packed x | B | C) over
 ``model``.  ``make_sharded_serve_steps`` returns prefill and decode
 steps over that layout.  ``ContinuousBatcher`` runs the same ``step()``
@@ -131,12 +132,15 @@ def build_secure_serving(cfg: ModelConfig, scfg: ServeConfig, weights: dict,
     return SecureServing(pool=pool, cache=cache, batcher=batcher)
 
 
-def serve_prefill_step(cfg: ModelConfig, params, tokens, cache):
-    """One full-sequence prefill.  For [audio] archs the input is
-    precomputed frame embeddings (float), not tokens."""
+def serve_prefill_step(cfg: ModelConfig, params, tokens, cache,
+                       start: int = 0):
+    """One prefill of the sequence (or of a chunk of it from position
+    ``start``).  For [audio] archs the input is precomputed frame
+    embeddings (float), not tokens."""
     if tokens.is_floating_point():
-        return tf.prefill(cfg, params, None, cache, embeds=tokens)
-    return tf.prefill(cfg, params, tokens, cache)
+        return tf.prefill(cfg, params, None, cache, embeds=tokens,
+                          start=start)
+    return tf.prefill(cfg, params, tokens, cache, start=start)
 
 
 def serve_decode_step(cfg: ModelConfig, params, token, cache, pos):
@@ -166,11 +170,11 @@ def _local_rows(t, batch: int):
 def make_sharded_serve_steps(cfg: ModelConfig, mesh, params_shapes,
                              batch: int, max_len: int):
     """Prefill and decode steps on ``mesh`` (the current rules' mesh) for
-    a cache of ``batch`` × ``max_len``: ``prefill(params, tokens, cache)``
-    and ``decode(params, token, cache, pos)`` take the global tokens (and
-    positions), run the rank's rows (when the batch axes divide
-    ``batch``) on the rank's blocks, write the rank's cache blocks in
-    place and return every logit on every rank; and the cache's
+    a cache of ``batch`` × ``max_len``: ``prefill(params, tokens, cache,
+    start=0)`` and ``decode(params, token, cache, pos)`` take the global
+    tokens (and positions), run the rank's rows (when the batch axes
+    divide ``batch``) on the rank's blocks, write the rank's cache blocks
+    in place and return every logit on every rank; and the cache's
     placements.  ``params_shapes`` is checked against
     ``param_shardings``."""
     from repro_torch.train.train_step import param_shardings
@@ -191,10 +195,10 @@ def make_sharded_serve_steps(cfg: ModelConfig, mesh, params_shapes,
     R = sh.ranks(rules)
     split = R.D > 1 and batch % R.D == 0
 
-    def prefill(params, tokens, cache):
+    def prefill(params, tokens, cache, start=0):
         with sh.batch_split(split):
             logits, cache = serve_prefill_step(
-                cfg, params, _local_rows(tokens, batch), cache)
+                cfg, params, _local_rows(tokens, batch), cache, start)
             return (_gather_rows(logits) if split else logits), cache
 
     def decode(params, token, cache, pos):
@@ -213,7 +217,9 @@ def cache_shardings(rules, cache_shapes, seq_shard_kv: bool = False,
     """Path-aware cache placements (divisibility-checked), the
     reference's rules:
       kv k/v (nb, sub, B, S, KV, hd): batch over data; kv_heads over model,
-        falling back to sequence-sharded KV (SP) when KV doesn't divide;
+        falling back to sequence-sharded KV (SP) when KV doesn't divide
+        (where the reference would replicate a sequence the model axis
+        does not divide, blocks of ⌈S / model⌉: ``Placement.ceil``);
       ssm h (nb, sub, B, H, hd, n): heads over model;
       ssm conv (nb, sub, B, K-1, C): channels over model (with ``cfg``, by
         the packed x | B | C segments, ``models/ssm.py``; whole when the
@@ -229,12 +235,14 @@ def cache_shardings(rules, cache_shapes, seq_shard_kv: bool = False,
 
     def to_sh(path, leaf):
         dims = tuple(leaf.shape)
-        segments = None
+        segments = ceil = None
         if "kv" in path:
             spec = [None, None, "batch", None, "kv_heads", None]
             if dims[4] % logical_axis_size(rules, "kv_heads") != 0:
                 spec[4] = None
                 spec[3] = "seq_sp"           # shard the KV sequence instead
+                if dims[3] % logical_axis_size(rules, "seq_sp"):
+                    ceil = (3, dims[3])      # in blocks of ⌈S / model⌉
             elif seq_shard_kv:
                 spec[3] = "seq_data"         # data axis; heads keep model
         elif path[-1] == "h":
@@ -251,9 +259,11 @@ def cache_shardings(rules, cache_shapes, seq_shard_kv: bool = False,
         logical = sanitize_spec(rules, spec, dims)
         if segments is not None and logical[4] is None:
             segments = None
+        if ceil is not None:                 # kept where sanitize drops it
+            logical = logical[:3] + ("seq_sp",) + logical[4:]
         if rules.mesh is None:
             return None
-        return rules.sharding(*logical, segments=segments)
+        return rules.sharding(*logical, segments=segments, ceil=ceil)
 
     return unflatten(cache_shapes, [to_sh(path, leaf) for path, leaf
                                     in leaves_with_paths(cache_shapes)])

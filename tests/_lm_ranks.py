@@ -1,4 +1,5 @@
-"""Rank programs of the LM's multi-device tests (``test_torch_lm_sharded.py``).
+"""Rank programs of the LM's multi-device tests (``test_torch_lm_sharded.py``,
+``test_torch_lm_moe_groups.py``).
 
 Each function runs on every rank of ``repro_torch.launch.mesh.spawn``
 (gloo on the CPU), installs the mesh's rules, builds its inputs from the
@@ -8,6 +9,7 @@ tokens each rank sampled, collective counts.  Only ``torch``, ``numpy``
 and ``repro_torch`` are imported, so a rank starts without JAX.  The
 models run in float32 (``f32``).
 """
+import contextlib
 import dataclasses
 import warnings
 
@@ -24,6 +26,8 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.fault import (ElasticRunner, FaultConfig,
                                            SimulatedFailure)
 from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.models import common as mc
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import (ContinuousBatcher, ServeConfig,
                                       build_secure_serving,
@@ -77,12 +81,12 @@ def rows(b: dict, R) -> dict:
     return {k: v[R.d * per:(R.d + 1) * per] for k, v in b.items()}
 
 
-def serve_steps(cfg, p, steps) -> tuple:
+def serve_steps(cfg, p, steps, max_len: int = L) -> tuple:
     """Prefill S tokens, 2 uniform decode steps, one per-slot decode step:
     the logits of each, and the cache."""
     prefill, decode, _ = steps
     tok = tokens(cfg)
-    cache = tf.init_cache(cfg, B, L, device=CPU)
+    cache = tf.init_cache(cfg, B, max_len, device=CPU)
     with torch.no_grad():
         lg, cache = prefill(p, tok[:, :S], cache)
         out = [lg]
@@ -95,14 +99,35 @@ def serve_steps(cfg, p, steps) -> tuple:
     return out, cache
 
 
+#: a chunked prefill: CHUNKS[0] tokens from 0, then CHUNKS[1] from there,
+#: then one decode step, into a cache of ODD_L positions (4 does not divide)
+CHUNKS, ODD_L = (6, 5), 30
+
+
+def chunked_steps(cfg, p, steps, max_len: int = ODD_L) -> tuple:
+    """A prompt prefilled in two chunks (the second from ``cache_len`` =
+    CHUNKS[0]), then a decode step: the logits of each, and the cache."""
+    prefill, decode, _ = steps
+    n0, n1 = CHUNKS
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, n0 + n1 + 1)))
+    cache = tf.init_cache(cfg, B, max_len, device=CPU)
+    with torch.no_grad():
+        lg0, cache = prefill(p, tok[:, :n0], cache)
+        lg1, cache = prefill(p, tok[:, n0:n0 + n1], cache, start=n0)
+        lg2, cache = decode(p, tok[:, n0 + n1:], cache, n0 + n1)
+    return [lg0, lg1, lg2], cache
+
+
 def one_device_steps(cfg):
-    return (lambda p, t, c: serve_prefill_step(cfg, p, t, c),
+    return (lambda p, t, c, start=0: serve_prefill_step(cfg, p, t, c, start),
             lambda p, t, c, q: serve_decode_step(cfg, p, t, c, q), None)
 
 
-def batcher_tokens(cfg, p, max_batch: int = 4) -> dict:
+def batcher_tokens(cfg, p, max_batch: int = 4, max_len: int = L) -> dict:
     """Five requests of 5-8 tokens through ContinuousBatcher (greedy)."""
-    b = ContinuousBatcher(cfg, ServeConfig(max_batch=max_batch, max_len=L), p)
+    b = ContinuousBatcher(cfg, ServeConfig(max_batch=max_batch,
+                                           max_len=max_len), p)
     rng = np.random.default_rng(0)
     for n in (5, 7, 6, 8, 5):
         b.submit(rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
@@ -324,4 +349,170 @@ def on_1x4_heads() -> dict:
         out[kind, "local"] = {k: tuple(t.shape) for k, t in sub.items()}
         _, ms = train(cfg, tcfg(), 1)
         out[kind, "train"] = ms
+    return out
+
+
+def attn_inputs(cfg) -> dict:
+    """Seeded numpy inputs of one attention layer: the whole weights, the
+    chunks of a prompt (CHUNKS, then one decode row) and a cache of ODD_L
+    positions whose rows are noise until written."""
+    rng = np.random.default_rng(11)
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hdim
+
+    def f32(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    w = {"wq": f32(d, h * hd, scale=d ** -0.5),
+         "wk": f32(d, kv * hd, scale=d ** -0.5),
+         "wv": f32(d, kv * hd, scale=d ** -0.5),
+         "wo": f32(h * hd, d, scale=(h * hd) ** -0.5)}
+    xs = [f32(B, n, d) for n in CHUNKS + (1,)]
+    return dict(w=w, xs=xs, k=f32(B, ODD_L, kv, hd), v=f32(B, ODD_L, kv, hd))
+
+
+def attn_chunks(cfg, inputs: dict) -> dict:
+    """``attn_forward`` on this rank over ``inputs`` (``attn_inputs``): the
+    rank's blocks of the weights and of the sequence-split cache, the
+    chunks at cache_len 0, CHUNKS[0] and sum(CHUNKS); every chunk's output
+    and the cache gathered whole."""
+    apl = tf._placements(cfg)["layers"][0]["attn_layers"][0]["attn"]
+    p = {n: apl[n].local(torch.from_numpy(w)) for n, w in inputs["w"].items()}
+    cpl = sh.get_rules().sharding(None, "seq_sp", None, None,
+                                  ceil=(1, ODD_L))
+    cache = {n: cpl.local(torch.from_numpy(inputs[n])) for n in ("k", "v")}
+    outs, start = [], 0
+    with torch.no_grad():
+        for x in inputs["xs"]:
+            n = x.shape[1]
+            pos = torch.arange(start, start + n)[None]
+            o, cache = mc.attn_forward(cfg, p, torch.from_numpy(x), pos,
+                                       kv_cache=cache, cache_len=start)
+            outs.append(o)
+            start += n
+    return dict(outs=outs, cache={n: cpl.gather(c) for n, c in cache.items()},
+                local=tuple(cache["k"].shape))
+
+
+def on_1x4_chunked() -> dict:
+    """(data 1 × model 4), KV heads that do not split 4 ways (the dense
+    smoke config's 2, ``heads_config("dense")``'s 3): a cache of ODD_L
+    positions, a prompt prefilled in chunks and decoded, serving and the
+    batcher at that length, and one attention layer over the chunks."""
+    mesh = _mesh(4)
+    out = {}
+    for kind in ("dense", "heads"):
+        cfg = f32(DENSE) if kind == "dense" else heads_config("dense")
+        p = params(cfg)
+        steps = make_sharded_serve_steps(cfg, mesh, p, B, ODD_L)
+        lg, cache = chunked_steps(cfg, p, steps)
+        out[kind, "chunked"] = lg
+        out[kind, "cache"] = {g: {n: steps[2][g][n].gather(c)
+                                  for n, c in t.items()}
+                              for g, t in cache.items()}
+        out[kind, "cache_local"] = tuple(cache["kv"]["k"].shape)
+        out[kind, "serve"], _ = serve_steps(cfg, p, steps, ODD_L)
+        out[kind, "tokens"] = batcher_tokens(cfg, p, max_len=ODD_L)
+        acfg = attn_config(cfg)
+        out[kind, "attn"] = attn_chunks(acfg, attn_inputs(acfg))
+    return out
+
+
+def attn_config(cfg):
+    """``cfg`` with KV tiles of 8, so the reference's blockwise attention
+    over the ODD_L cache runs several tiles."""
+    return dataclasses.replace(cfg, attn_block=8)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch groups on their data rank
+# ---------------------------------------------------------------------------
+
+#: the dispatch group size that makes a rank's rows whole groups at the
+#: smoke sizes (2 rows a rank: 2 × 8 forward tokens, 2 × 16 train tokens)
+SMALL_GROUP = 16
+
+
+@contextlib.contextmanager
+def moe_group(group: int):
+    """``repro_torch.models.moe.GROUP`` set to ``group`` in the block."""
+    saved = moe_mod.GROUP
+    moe_mod.GROUP = group
+    try:
+        yield
+    finally:
+        moe_mod.GROUP = saved
+
+
+@contextlib.contextmanager
+def moe_record(R):
+    """Inside the block, ``moe_forward``'s collectives: the list it
+    yields gets the events of a ``collectives.scope`` open around each
+    call, and ``batch_gathers`` the bytes of every all-gather over the
+    batch axes among them."""
+    record = dict(events=[], batch_gathers=[])
+    fwd, gather = moe_mod.moe_forward, collectives.all_gather
+    inside = [0]
+
+    def counted_forward(*args, **kw):
+        inside[0] += 1
+        try:
+            with collectives.scope(record["events"]):
+                return fwd(*args, **kw)
+        finally:
+            inside[0] -= 1
+
+    def counted_gather(t, group, size):
+        if inside[0] and group is R.batch_group:
+            record["batch_gathers"].append(size * t.numel() * t.element_size())
+        return gather(t, group, size)
+    moe_mod.moe_forward, collectives.all_gather = counted_forward, \
+        counted_gather
+    try:
+        yield record
+    finally:
+        moe_mod.moe_forward, collectives.all_gather = fwd, gather
+
+
+def rank_rows(t: torch.Tensor, R) -> torch.Tensor:
+    per = t.shape[0] // R.D
+    return t[R.d * per:(R.d + 1) * per]
+
+
+def moe_grads(cfg, p, b: dict, R=None) -> tuple:
+    """(metrics as floats, grads): ``train_loss``'s value and grad on
+    ``b`` (a rank's rows under the mesh, the grads summed over the batch
+    axes and gathered whole)."""
+    with sh.batch_split(R is not None):
+        (_, m), g = ts.value_and_grad(cfg, p, b)
+    if R is not None:
+        pl = leaves(tf._placements(cfg))
+        g = [q.gather(t) for t, q in zip(ts._sync_grads(g, pl, R), pl,
+                                         strict=True)]
+    return {k: float(v) for k, v in m.items()}, [t.float() for t in g]
+
+
+def moe_groups(model: int) -> dict:
+    """(data 2 × model ``model``), the MoE smoke config in float32 on a
+    batch split over data: with SMALL_GROUP (a rank's rows are whole
+    groups) a forward, ``train_loss``'s value and grad and one train step;
+    with the default GROUP (a group spans the ranks' rows) a forward.
+    Each with the MoE's collective record."""
+    _mesh(model)
+    R = sh.ranks()
+    cfg = f32(MOE)
+    p = params(cfg)
+    out = {}
+    for group in (SMALL_GROUP, moe_mod.GROUP):
+        with moe_group(group):
+            with moe_record(R) as rec, torch.no_grad(), sh.batch_split():
+                lg, aux = tf.forward(cfg, p, rank_rows(tokens(cfg), R))
+            out[group, "forward"] = (lg, float(aux))
+            out[group, "forward_record"] = rec
+            if group != SMALL_GROUP:
+                continue
+            with moe_record(R) as rec:
+                out["grads"] = moe_grads(cfg, p, rows(batch(cfg, 0), R), R)
+            out["grads_record"] = rec
+            state, ms = train(cfg, tcfg(), 1, R=R)
+            out["train"] = ms
+            out["state"] = gathered(cfg, tcfg(), state)
     return out

@@ -28,13 +28,26 @@ Each mesh shape is spawned once (a module fixture, ``tests/_lm_ranks.py``):
   ``in_proj`` / ``conv_w`` included), equal to one device's;
 * (data 1 × model 4): the dense smoke config's 2 KV heads do not split
   4 ways (K/V whole on every rank, the cache's sequence split,
-  flash-decoding) and the MoE's 8 experts split 4 ways.
+  flash-decoding) and the MoE's 8 experts split 4 ways;
+* (data 1 × model 4) again, with KV heads that do not split 4 ways (the
+  dense smoke config's 2, and 3 of 6 heads that replicate attention) and
+  a cache of 30 positions, which 4 does not divide (a rank holds 8, the
+  last rank's 2 past the end never written): a prompt prefilled in two
+  chunks, the second from ``cache_len`` 6, then decoded, equal to one
+  device (logits and the gathered cache); serving and the batcher at that
+  length; one attention layer over the chunks against the reference's
+  ``repro.models.common.attn_forward`` with a scalar ``cache_len``, run
+  here on the same seeded numpy inputs.
 """
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import _lm_ranks as lr
+from repro.models import common as jc
 from repro_torch.launch.mesh import spawn
 from repro_torch.models import transformer as tf
 from repro_torch.tree import leaves
@@ -61,6 +74,11 @@ def mesh2x2(mesh1x2, ckpt_dir):
 @pytest.fixture(scope="module")
 def mesh1x4():
     return spawn(lr.on_1x4, 4, device="cpu", backend="gloo")
+
+
+@pytest.fixture(scope="module")
+def mesh1x4_chunked():
+    return spawn(lr.on_1x4_chunked, 4, device="cpu", backend="gloo")
 
 
 _ONE: dict = {}
@@ -219,3 +237,100 @@ def test_secure_layer_on_the_lm_mesh(mesh1x2):
         assert len(got["rows"]) == len(want["rows"]) >= 2
         for g, w in zip(got["rows"], want["rows"]):
             np.testing.assert_array_equal(g, w)
+
+
+def _odd_config(kind: str):
+    return lr.f32(lr.DENSE) if kind == "dense" else lr.heads_config("dense")
+
+
+_ODD: dict = {}
+
+
+def one_device_odd(kind: str) -> dict:
+    """The one-device port on a cache of ODD_L positions: the chunked
+    prefill and its decode step, the cache, serving and the batcher."""
+    if kind not in _ODD:
+        cfg = _odd_config(kind)
+        p = lr.params(cfg)
+        steps = lr.one_device_steps(cfg)
+        lg, cache = lr.chunked_steps(cfg, p, steps)
+        serve, _ = lr.serve_steps(cfg, p, steps, lr.ODD_L)
+        _ODD[kind] = dict(chunked=lg, cache=cache, serve=serve, params=p,
+                          tokens=lr.batcher_tokens(cfg, p,
+                                                   max_len=lr.ODD_L))
+    return _ODD[kind]
+
+
+@pytest.mark.parametrize("kind", ["dense", "heads"])
+def test_chunked_prefill_into_a_seq_split_cache(mesh1x4_chunked, kind):
+    """6 tokens from 0, then 5 from ``cache_len`` 6, then a decode step,
+    into a cache of 30 positions on 4 model ranks: the logits of each and
+    the gathered cache equal one device's; a rank holds ⌈30 / 4⌉ = 8
+    positions of every KV head."""
+    cfg = _odd_config(kind)
+    want = one_device_odd(kind)
+    for r in mesh1x4_chunked:
+        for g, w in zip(r[kind, "chunked"], want["chunked"], strict=True):
+            _close(g, w)
+        for grp, tree in want["cache"].items():
+            for n, c in tree.items():
+                assert r[kind, "cache"][grp][n].shape == c.shape
+                _close(r[kind, "cache"][grp][n], c)
+        assert r[kind, "cache_local"] == (cfg.num_layers, 1, lr.B,
+                                          -(-lr.ODD_L // 4), cfg.kv_heads,
+                                          cfg.hdim)
+
+
+def test_chunked_prefill_equals_one_prefill():
+    """On one device the chunked prompt's last logits are those of one
+    prefill of the 11 tokens (what the chunks stand for)."""
+    cfg = lr.f32(lr.DENSE)
+    p = one_device_odd("dense")["params"]
+    n0, n1 = lr.CHUNKS
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (lr.B, n0 + n1 + 1)))
+    cache = tf.init_cache(cfg, lr.B, lr.ODD_L, device="cpu")
+    with torch.no_grad():
+        whole, _ = tf.prefill(cfg, p, tok[:, :n0 + n1], cache)
+    _close(one_device_odd("dense")["chunked"][1], whole)
+
+
+@pytest.mark.parametrize("kind", ["dense", "heads"])
+def test_serving_with_a_cache_length_4_does_not_divide(mesh1x4_chunked,
+                                                       kind):
+    """Prefill + 2 decode steps + a per-slot one, and the batcher's
+    tokens, with a cache of 30 positions on a model axis of 4."""
+    want = one_device_odd(kind)
+    for r in mesh1x4_chunked:
+        for g, w in zip(r[kind, "serve"], want["serve"], strict=True):
+            _close(g, w)
+        assert r[kind, "tokens"] == want["tokens"]
+
+
+@pytest.mark.parametrize("kind", ["dense", "heads"])
+def test_attn_chunks_equal_the_reference(mesh1x4_chunked, kind):
+    """One attention layer on 4 model ranks over a sequence-split cache of
+    30 positions (noise until written), at ``cache_len`` 0, 6 and 11,
+    against the reference's ``attn_forward`` with the scalar
+    ``cache_len`` (``dynamic_update_slice``, then blockwise attention
+    from ``q_offset``) on the whole cache: outputs and the cache."""
+    cfg = lr.attn_config(_odd_config(kind))
+    jcfg = jc.ModelConfig(**dataclasses.asdict(cfg))
+    inp = lr.attn_inputs(cfg)
+    jp = {n: jnp.asarray(w) for n, w in inp["w"].items()}
+    jkv = {n: jnp.asarray(inp[n]) for n in ("k", "v")}
+    outs, start = [], 0
+    for x in inp["xs"]:
+        n = x.shape[1]
+        pos = jnp.arange(start, start + n, dtype=jnp.int32)[None]
+        o, jkv = jc.attn_forward(jcfg, jp, jnp.asarray(x), pos, kv_cache=jkv,
+                                 cache_len=start)
+        outs.append(torch.from_numpy(np.array(o)))
+        start += n
+    for r in mesh1x4_chunked:
+        got = r[kind, "attn"]
+        assert got["local"][1] == -(-lr.ODD_L // 4)
+        for g, w in zip(got["outs"], outs, strict=True):
+            _close(g, w)
+        for n in ("k", "v"):
+            _close(got["cache"][n], torch.from_numpy(np.array(jkv[n])))
