@@ -1522,79 +1522,6 @@ def staged_call(prog, ctA, ctB, on_stage=None):
     return out, stages
 
 
-def profile_products(prog, ctA, ctB, first: int = 8, count: int = 4) -> str:
-    """One more call of the batched program with a ``torch.profiler``
-    window over products ``first`` … ``first + count − 1`` of its
-    mult → rescale loop (the engine's ``mult`` and ``rescale`` wrapped on
-    the instance for the call).  Returns the line to print: the device
-    busy share of the window (the union of the device events' intervals
-    over the window's host time, both ends synchronised) and the device ms
-    summed for the ``ntt``/``intt`` kernels and for all other device work;
-    "not measured" where the profiler records no device event."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    eng = prog.ctx.eng
-    mult, rescale = eng.mult, eng.rescale
-    state = {"k": None}
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-
-    def on_stage(name):
-        if name == "step2":
-            state["k"] = 0
-
-    def p_mult(a, b, keys):
-        if state["k"] == first:
-            torch.cuda.synchronize()
-            prof.__enter__()
-            state["t0"] = time.perf_counter()
-        return mult(a, b, keys)
-
-    def p_rescale(ct):
-        out = rescale(ct)
-        if state["k"] is not None:
-            state["k"] += 1
-            if state["k"] == first + count:
-                torch.cuda.synchronize()
-                state["wall"] = (time.perf_counter() - state["t0"]) * 1e3
-                prof.__exit__(None, None, None)
-        return out
-
-    eng.mult, eng.rescale = p_mult, p_rescale
-    try:
-        staged_call(prog, ctA, ctB, on_stage)
-    finally:
-        del eng.mult, eng.rescale
-    spans, ntt_us, other_us = [], 0.0, 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t0, t1 = e.time_range.start, e.time_range.end
-        spans.append((t0, t1))
-        if "ntt_fwd_split" in e.name or "ntt_inv_split" in e.name:
-            ntt_us += t1 - t0
-        else:
-            other_us += t1 - t0
-    wall = state["wall"]
-    if not spans:
-        return (f"[main] profiler window over products {first}-"
-                f"{first + count - 1} of the mult -> rescale loop: "
-                f"{wall:.3f} ms; device busy share: not measured (no device "
-                f"events recorded)")
-    busy, end = 0.0, float("-inf")
-    for t0, t1 in sorted(spans):
-        if t1 > end:
-            busy += t1 - max(t0, end)
-            end = t1
-    return (f"[main] profiler window over products {first}-{first + count - 1}"
-            f" of the mult -> rescale loop: {wall:.3f} ms on the host clock; "
-            f"device busy share {busy / 1e3 / wall:.4f} ({busy / 1e3:.3f} ms "
-            f"of device activity, {len(spans)} device events); ntt/intt "
-            f"kernels {ntt_us / 1e3:.3f} ms, all other device work "
-            f"{other_us / 1e3:.3f} ms")
-
-
 def program_paths(prog) -> list:
     """[staged, gathered, identity] (block, rotation) pairs that
     ``tile_sources`` predicts for one call of a ``pallas`` HEMMProgram:
@@ -1718,11 +1645,6 @@ def phase_main(params, shape):
     peak = torch.cuda.max_memory_allocated()
     _, st = staged_call(prog, ctA, ctB)
     log(f"[main] batched timed call: stage ms {fmt(st)}")
-    try:        # a measurement only: the run does not fail for it
-        log(profile_products(prog, ctA, ctB))
-    except Exception as e:          # noqa: BLE001
-        log(f"[main] device busy share: not measured (torch.profiler "
-            f"raised {type(e).__name__}: {e})")
     # the same program with the engine's transforms on the plain int64 NTT
     ctx.eng.datapath = "xla"
     try:

@@ -118,9 +118,11 @@ def take_census(run) -> dict:
                 counts[k] = launches.get(k, 0)
         for live, old in ((ops.CALLS, calls), (ntt.CALLS, ntts),
                           (collectives.COUNTS, coll_n),
-                          (collectives.BYTES, coll_b),
-                          (ctx.counters, counters)):
+                          (collectives.BYTES, coll_b)):
             live.update(old)
+        # exact: a span the run closed may have added keys
+        ctx.counters.clear()
+        ctx.counters.update(counters)
         fused_hlt.PATHS = paths
 
 

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import automorph, modmath as mm, ntt
+from repro_torch.core import automorph, modmath as mm, ntt, trace
 from repro_torch.core.params import HEParams, PrimeContext, get_context
 from repro_torch.core.rns import RnsTools
 from repro_torch.kernels import basechange, ops
@@ -184,6 +184,7 @@ class CkksEngine:
         return np.mod(ints[None, :], qs).astype(np.uint32)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        trace.h2d()
         return torch.from_numpy(
             np.ascontiguousarray(a, np.uint32).view(np.int32)).to(self.device)
 
@@ -215,6 +216,7 @@ class CkksEngine:
         ``idx``, reduced on the device (one row crosses, not |idx|)."""
         view = self.basis(idx)
         x = torch.from_numpy(np.ascontiguousarray(ints, np.int64))
+        trace.h2d()
         res = torch.remainder(x.to(self.device)[None, :], view.moduli)
         return self._ntt(res.to(torch.int32), view)
 
@@ -268,6 +270,7 @@ class CkksEngine:
                 Dj *= self.ctx.moduli_host[i]
             hatDj = QL // Dj
             w_int = Pprod * hatDj * pow(hatDj % Dj, -1, Dj)
+            trace.h2d()
             w_res = torch.tensor([w_int % self.ctx.moduli_host[i] for i in full],
                                  dtype=torch.int64, device=self.device)[:, None]
             a = self._uniform_poly(rng, full)
@@ -363,25 +366,30 @@ class CkksEngine:
 
     def key_switch(self, d, evk: EvalKey, ell: int):
         """d: (ell+1, N) eval-domain poly under s'; returns (k0, k1) under s."""
-        p = self.params
-        bases = self.tools.digit_bases(ell)
-        full = bases[0][2]
-        q = self.basis(full).moduli
-        pos = {g: i for i, g in enumerate(full)}
-        rows = torch.as_tensor(full, device=self.device)
-        acc0 = torch.zeros((len(full), p.N), dtype=torch.int32, device=self.device)
-        acc1 = torch.zeros_like(acc0)
-        for j, (own, gen, _) in enumerate(bases):
-            dig_eval = d[own[0]: own[-1] + 1]
-            coeff = self._intt(dig_eval, self.basis(own))
-            ext = self.tools.mod_up(coeff, own, gen)
-            ext_eval = self._ntt(ext, self.basis(gen))
-            xfull = torch.zeros_like(acc0)
-            xfull[[pos[i] for i in own]] = dig_eval
-            xfull[[pos[i] for i in gen]] = ext_eval
-            acc0 = mm.addmod(acc0, mm.mulmod(xfull, evk.k0[j][rows], q), q)
-            acc1 = mm.addmod(acc1, mm.mulmod(xfull, evk.k1[j][rows], q), q)
-        return self._mod_down_eval(acc0, ell), self._mod_down_eval(acc1, ell)
+        with trace.span("he.key_switch"):
+            p = self.params
+            bases = self.tools.digit_bases(ell)
+            full = bases[0][2]
+            q = self.basis(full).moduli
+            pos = {g: i for i, g in enumerate(full)}
+            trace.h2d()
+            rows = torch.as_tensor(full, device=self.device)
+            acc0 = torch.zeros((len(full), p.N), dtype=torch.int32,
+                               device=self.device)
+            acc1 = torch.zeros_like(acc0)
+            for j, (own, gen, _) in enumerate(bases):
+                dig_eval = d[own[0]: own[-1] + 1]
+                coeff = self._intt(dig_eval, self.basis(own))
+                ext = self.tools.mod_up(coeff, own, gen)
+                ext_eval = self._ntt(ext, self.basis(gen))
+                xfull = torch.zeros_like(acc0)
+                trace.h2d(2)            # each list index crosses to the device
+                xfull[[pos[i] for i in own]] = dig_eval
+                xfull[[pos[i] for i in gen]] = ext_eval
+                acc0 = mm.addmod(acc0, mm.mulmod(xfull, evk.k0[j][rows], q), q)
+                acc1 = mm.addmod(acc1, mm.mulmod(xfull, evk.k1[j][rows], q), q)
+            return (self._mod_down_eval(acc0, ell),
+                    self._mod_down_eval(acc1, ell))
 
     def _mod_down_eval(self, x_full, ell: int, drop_last: bool = False,
                        datapath: Optional[str] = None):
@@ -415,11 +423,12 @@ class CkksEngine:
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
         """Divide by q_ℓ, dropping one level (eval-domain single-limb path)."""
-        ell = ct.level
-        q_ell = self.ctx.moduli_host[ell]
-        return Ciphertext(self._rescale_poly(ct.c0, ell),
-                          self._rescale_poly(ct.c1, ell), ell - 1,
-                          ct.scale / q_ell)
+        with trace.span("he.rescale"):
+            ell = ct.level
+            q_ell = self.ctx.moduli_host[ell]
+            return Ciphertext(self._rescale_poly(ct.c0, ell),
+                              self._rescale_poly(ct.c1, ell), ell - 1,
+                              ct.scale / q_ell)
 
     def _rescale_poly(self, x, ell: int):
         last_coeff = self._intt(x[ell:ell + 1], self.basis((ell,)))

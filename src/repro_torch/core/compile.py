@@ -63,6 +63,7 @@ from repro_torch.analysis.diagnostics import VerificationError
 from repro_torch.analysis.level_scale import trace_chain
 from repro_torch.core import hlt as hlt_mod
 from repro_torch.core import hlt_dist
+from repro_torch.core import trace as _trace
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
 from repro_torch.core.costmodel import (SMEM_PER_BLOCK, hlt_hoist_bytes,
                                         hlt_stage_costs, pick_rotation_chunk,
@@ -162,7 +163,10 @@ class HEContext:
     ``counters`` are monotonic lifetime statistics (not reset by
     ``invalidate``): ``hlt_launches`` counts CompiledHLT calls (one
     rotation-datapath launch each) and ``program_launches`` counts
-    program calls (HEMMProgram, BlockMMProgram, HEMMChainProgram).
+    program calls (HEMMProgram, BlockMMProgram, HEMMChainProgram).  A
+    program call and ``keygen`` open a ``core/trace.py`` scope on them, so
+    the spans ``he.call``, ``he.key_switch``, ``he.rescale`` and
+    ``he.keygen`` add their ``.ns``, ``.calls`` and ``.h2d`` keys here.
 
     ``mesh`` (``launch/mesh.py`` :class:`~repro_torch.launch.mesh.Mesh`,
     this process one of its ranks) makes the ``"sharded"`` schedules
@@ -226,8 +230,10 @@ class HEContext:
         return self.smem_headroom * SMEM_PER_BLOCK
 
     def keygen(self, rng, rot_steps: Sequence[int] = ()) -> Keys:
-        """Generate fresh keys and invalidate every cached operand."""
-        self.keys = self.eng.keygen(rng, rot_steps=rot_steps)
+        """Generate fresh keys and invalidate every cached operand (span
+        ``he.keygen``)."""
+        with _trace.scope(self.counters), _trace.span("he.keygen"):
+            self.keys = self.eng.keygen(rng, rot_steps=rot_steps)
         self.invalidate()
         return self.keys
 
@@ -244,6 +250,14 @@ class HEContext:
             raise RuntimeError(
                 "stale compiled object: its HEContext was invalidated "
                 "(re-keygen?) after compilation — recompile")
+
+    def _program_call(self, gen: int):
+        """A program call compiled at generation ``gen``: checked, counted
+        in ``program_launches``, and run in a trace scope on ``counters``
+        (the call's index is its count)."""
+        self._check_generation(gen)
+        self.counters["program_launches"] += 1
+        return _trace.scope(self.counters, self.counters["program_launches"])
 
     def _sharded_pipeline(self, tabs, rank_tabs, d_pad: int, nbeta: int,
                           datapath: str = "pallas",
@@ -628,6 +642,7 @@ class CompiledHLT:
         when the aliasing is the hint's, else a fresh one."""
         if tuple(ct_slots) == self._ct_pattern:
             return self._slot_tables["ct"]
+        _trace.h2d()
         return torch.tensor(list(ct_slots) + [0] * (b_pad - len(ct_slots)),
                             dtype=torch.int32, device=self.ctx.eng.device)
 
@@ -848,6 +863,12 @@ class HEMMPlan(_StageSums):
     depth: int = 3
 
 
+#: mark -> the profiler range it opens until the next mark
+#: (``trace.ranges``); the last mark opens none
+STAGE_RANGES = {"start": "he.step1", "step1": "he.step2_hoist",
+                "step2_hoist": "he.step2", "step2": "he.loop"}
+
+
 class HEMMProgram:
     """A compiled Algorithm-2 HE MM: ``prog(ctA, ctB) -> ctC``.
 
@@ -874,12 +895,18 @@ class HEMMProgram:
         self.stage_hook: Optional[Callable[[str], None]] = None
 
     def _mark(self, name: str) -> None:
+        """The stage hook, outside the stage's profiler range."""
+        _trace.stage(None)
         if self.stage_hook is not None:
             self.stage_hook(name)
+        _trace.stage(STAGE_RANGES.get(name))
 
     def __call__(self, ctA: Ciphertext, ctB: Ciphertext) -> Ciphertext:
-        self.ctx._check_generation(self._gen)
-        self.ctx.counters["program_launches"] += 1
+        """One call (``HEContext._program_call``), span ``he.call``."""
+        with self.ctx._program_call(self._gen), _trace.span("he.call"):
+            return self._run(ctA, ctB)
+
+    def _run(self, ctA: Ciphertext, ctB: Ciphertext) -> Ciphertext:
         eng, keys, p = self.ctx.eng, self.ctx.keys, self.mm_plan
         if not ctA.level == ctB.level == self.plan.level:
             raise ValueError(f"input levels {ctA.level}, {ctB.level}; "
@@ -1033,8 +1060,11 @@ class BlockMMProgram:
             self.stage_hook(name)
 
     def __call__(self, A_tiles, B_tiles) -> list:
-        self.ctx._check_generation(self._gen)
-        self.ctx.counters["program_launches"] += 1
+        """One call (``HEContext._program_call``)."""
+        with self.ctx._program_call(self._gen):
+            return self._run(A_tiles, B_tiles)
+
+    def _run(self, A_tiles, B_tiles) -> list:
         eng, keys, p = self.ctx.eng, self.ctx.keys, self.mm_plan
         gm, gl, gn = self.plan.grid
         if len(A_tiles) != gm or any(len(r) != gl for r in A_tiles):
@@ -1259,9 +1289,11 @@ class HEMMChainProgram:
 
     def run_hops(self, ctX: Ciphertext, weights) -> list:
         """Run the chain and return every hop's output (the last is the
-        chain's)."""
-        self.ctx._check_generation(self._gen)
-        self.ctx.counters["program_launches"] += 1
+        chain's); one call (``HEContext._program_call``)."""
+        with self.ctx._program_call(self._gen):
+            return self._run_hops(ctX, weights)
+
+    def _run_hops(self, ctX: Ciphertext, weights) -> list:
         plan = self.plan
         if ctX.level != plan.level:
             raise ValueError(f"input level {ctX.level}, compiled for "

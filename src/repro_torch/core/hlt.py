@@ -37,7 +37,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import automorph, modmath as mm
+from repro_torch.core import automorph, modmath as mm, trace
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys, Plaintext
 from repro_torch.kernels import ops
 
@@ -197,6 +197,7 @@ def _scale_raise(eng: CkksEngine, x, ell: int):
         Pprod = 1
         for i in range(p.num_main, p.num_total):
             Pprod *= eng.ctx.moduli_host[i]
+        trace.h2d()
         pres = torch.tensor([Pprod % eng.ctx.moduli_host[i]
                              for i in range(ell + 1)],
                             dtype=torch.int64, device=eng.device)[:, None]
@@ -278,6 +279,7 @@ def _hlt_baseline(eng: CkksEngine, ct: Ciphertext, diags: DiagSet,
 def _gather_keys(eng: CkksEngine, keys: Keys, zs, nbeta: int, full):
     """Rotation-key rows of the extended basis, (d, β, M_ext, N) each; the
     z = 0 entry (never read) is zeros."""
+    trace.h2d()
     rows = torch.as_tensor(full, device=eng.device)
     zero = torch.zeros((nbeta, len(full), eng.params.N), dtype=torch.int32,
                        device=eng.device)
@@ -299,6 +301,7 @@ def _accumulate(eng: CkksEngine, hst: Hoisted, diags: DiagSet, keys: Keys,
     nbeta = hst.digits.shape[0]
     N = eng.params.N
     q = view.moduli
+    trace.h2d()
     rows = torch.as_tensor(full, device=eng.device)
     for t in t_indices:
         z = diags.zs[t]
@@ -391,6 +394,7 @@ def _hlt_mo(eng: CkksEngine, hst: Hoisted, diags: DiagSet, keys: Keys,
     full = eng.tools.digit_bases(hst.level)[0][2]
     nbeta = hst.digits.shape[0]
     rk0, rk1 = _gather_keys(eng, keys, diags.zs, nbeta, full)
+    trace.h2d(3)
     perms = torch.as_tensor(_perm_table(eng, diags.zs), device=eng.device)
     u_all = diags.pt[:, torch.as_tensor(full, device=eng.device)]
     is_id = torch.tensor([z == 0 for z in diags.zs], device=eng.device)

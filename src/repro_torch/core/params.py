@@ -14,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core import modmath as mm
+from repro_torch.core import modmath as mm, trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +217,7 @@ class BasisView:
     def __init__(self, ctx: PrimeContext, idx: np.ndarray):
         self.ctx = ctx
         self.idx = idx
+        trace.h2d()
         self._sel = torch.as_tensor(idx, dtype=torch.int64, device=ctx.device)
         self._cache: dict = {}
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import modmath as mm
+from repro_torch.core import modmath as mm, trace
 from repro_torch.core.params import PrimeContext
 
 #: floor correction of ``base_conv`` (the reference's ``+ 1e-9``, f64)
@@ -55,6 +55,7 @@ class RnsTools:
         if key not in self._dev_cache:
             hat_inv, W, D_mod_t, inv_d = self._bc_tables(S, T)
             dev = self.ctx.device
+            trace.h2d(6)
             self._dev_cache[key] = (
                 torch.as_tensor(hat_inv.astype(np.int64), device=dev),
                 torch.as_tensor(W.astype(np.int64), device=dev),
@@ -103,6 +104,7 @@ class RnsTools:
         """(x − [x]_P)/P: x_q (|Q|, N) and x_p (|P|, N) coefficient-domain
         residues.  Returns (|Q|, N)."""
         conv = self.base_conv(x_p, P, Q)
+        trace.h2d()
         qs = self.ctx.moduli[torch.as_tensor(Q, device=self.ctx.device)]
         return mm.mulmod(mm.submod(x_q, conv, qs), self.moddown_pinv(P, Q), qs)
 
@@ -114,6 +116,7 @@ class RnsTools:
     def moddown_pinv(self, P: tuple, Q: tuple) -> torch.Tensor:
         key = ("md", P, Q)
         if key not in self._dev_cache:
+            trace.h2d()
             self._dev_cache[key] = torch.as_tensor(
                 self._moddown_tables(P, Q).astype(np.int64),
                 device=self.ctx.device)

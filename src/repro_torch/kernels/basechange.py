@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import modmath as mm
-from repro_torch.core import ntt as core_ntt
+from repro_torch.core import ntt as core_ntt, trace
 from repro_torch.kernels import build
 
 #: floor-correction epsilon of the fused HPS BaseConv (the reference's)
@@ -527,7 +527,9 @@ def to_device(tabs: dict, device) -> dict:
     for k, v in tabs.items():
         if not isinstance(v, np.ndarray):
             out[k] = v
-        elif v.dtype == np.uint32:
+            continue
+        trace.h2d()
+        if v.dtype == np.uint32:
             out[k] = torch.from_numpy(np.ascontiguousarray(v).view(np.int32)
                                       ).to(device)
         else:
