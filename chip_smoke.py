@@ -1462,18 +1462,21 @@ def round_divisions(eng):
 
 
 def expected_launches(batched: bool, l: int, digits=2,
-                      chunks: int = 2) -> dict:
+                      chunks: int = 2, loops=1) -> dict:
     """Kernel launches of one hemm call on each path (every other kernel
-    of ``KERNELS`` launches 0 times); ``digits``: the key-switch digits at
-    the products' level (2 at Set-B, 3 at Set-C), or a sequence of them,
-    one a hop of a chain of such hemms (the sum over the hops);
-    ``chunks``: the batched HLT runs of a call, Step 1 and Step 2 each in
-    ``costmodel.step2_chunk``'s chunks (``hlt_chunks``; 2 when neither
-    batch reaches the budget)."""
+    of ``KERNELS`` launches 0 times); ``l``: its products; ``digits``: the
+    key-switch digits at the products' level (2 at Set-B, 3 at Set-C), or
+    a sequence of them, one a hop of a chain of such hemms (the sum over
+    the hops); ``chunks``: the batched HLT runs of a call, Step 1 and
+    Step 2 each in ``costmodel.step2_chunk``'s chunks (``hlt_chunks``; 2
+    when neither batch reaches the budget); ``loops``: the product loop's
+    chunks (``loop_chunks``), an int or one a hop as ``digits``."""
     want = {k: 0 for k in KERNELS}
-    for dg in ((digits,) if isinstance(digits, int) else digits):
-        per = dg + 4                      # per product: the digits, 2
-        add = dict(ntt=per * l, intt=per * l)   # ModDowns, 2 rescales,
+    hops = (digits,) if isinstance(digits, int) else digits
+    loops = (loops,) * len(hops) if isinstance(loops, int) else loops
+    for dg, lc in zip(hops, loops, strict=True):
+        per = dg + 4                      # per loop chunk: the digits, 2
+        add = dict(ntt=per * lc, intt=per * lc)  # ModDowns, 2 rescales,
         if batched:                       # each an iNTT + an NTT
             add.update(fused_hlt_indexed=chunks, hoist_db=2,
                        intt_scale=chunks, moddown_finish=chunks)
@@ -1483,6 +1486,25 @@ def expected_launches(batched: bool, l: int, digits=2,
         for k, v in add.items():
             want[k] += v
     return want
+
+
+def loop_chunks(params, level: int, products: int, step2_batch: int) -> int:
+    """The product loop's chunks for ``products`` products at input level
+    ``level`` beside a Step 2 of ``step2_batch`` HLTs
+    (``costmodel.loop_chunk``)."""
+    from repro_torch.core.costmodel import loop_chunk
+    return -(-products // loop_chunk(params, level, products, step2_batch))
+
+
+def program_loops(prog) -> int:
+    """The loop chunks of one call of a hemm or block-MM program."""
+    l, plan = prog.mm_plan.l, prog.plan
+    if type(prog).__name__ == "BlockMMProgram":     # l·gm·gl·gn products
+        gm, gl, gn = plan.grid
+        products, step2 = l * gm * gl * gn, plan.step2.batch
+    else:
+        products, step2 = l, 2 * l
+    return loop_chunks(prog.ctx.eng.params, plan.level - 2, products, step2)
 
 
 def hlt_chunks(prog) -> int:
@@ -1559,7 +1581,7 @@ def counted_call(ctx, prog, ctA, ctB, batched: bool, l: int,
     hlts = ctx.counters["hlt_launches"] - h0
     # the products run two levels below the program's inputs
     digits = len(ctx.eng.tools.digit_bases(prog.plan.level - 2))
-    want = expected_launches(batched, l, digits)
+    want = expected_launches(batched, l, digits, loops=program_loops(prog))
     what = "batched" if batched else "unbatched"
     if launches != want or hlts != (2 if batched else 2 + 2 * l):
         raise AssertionError(f"{what} hemm launched {launches}, {hlts} HLTs; "
@@ -2006,8 +2028,9 @@ def phase_blockmm(params) -> dict:
     llaunch = ops.launch_counts()
     digits = len(ctx.eng.tools.digit_bases(bp.level - 2))
     pairs = grid[0] * grid[1] * grid[2]
-    want = {k: pairs * v
-            for k, v in expected_launches(False, bp.l, digits).items()}
+    loops = loop_chunks(ctx.eng.params, bp.level - 2, bp.l, 2 * bp.l)
+    want = {k: pairs * v for k, v in
+            expected_launches(False, bp.l, digits, loops=loops).items()}
     if llaunch != want:
         raise AssertionError(f"block MM loop launched {llaunch}; expected "
                              f"{want}")
@@ -2194,6 +2217,8 @@ def chain_counted(ctx, prog, ctX, w_cts, batched: bool, tag: str):
     eng = ctx.eng
     l = plan.shapes[0][1]
     digits = [len(eng.tools.digit_bases(lvl - 2)) for lvl in plan.hop_levels]
+    loops = [loop_chunks(eng.params, lvl - 2, l, 2 * l)
+             for lvl in plan.hop_levels]
     c0, d0 = dict(ctx.counters), eng.op_counts["decrypts"]
     ops.reset_launch_counts()
     res = {}
@@ -2201,7 +2226,7 @@ def chain_counted(ctx, prog, ctX, w_cts, batched: bool, tag: str):
     launches = ops.launch_counts()
     hlts = ctx.counters["hlt_launches"] - c0["hlt_launches"]
     progs = ctx.counters["program_launches"] - c0["program_launches"]
-    want = expected_launches(batched, l, digits)
+    want = expected_launches(batched, l, digits, loops=loops)
     what = "batched" if batched else "unbatched"
     k = plan.k
     if launches != want or hlts != k * (2 if batched else 2 + 2 * l) \
@@ -2712,7 +2737,10 @@ def phase_serve(params) -> dict:
         level = sess.linears[0]._w_tiles[0][0].level
         digits = len(sess.ctx.eng.tools.digit_bases(level - 2))
         g = -(-n // BLOCKMM_TILE)
-        want = expected_launches(True, BLOCKMM_TILE * R * g * g, digits)
+        products = BLOCKMM_TILE * R * g * g
+        loops = loop_chunks(sess.ctx.eng.params, level - 2, products,
+                            BLOCKMM_TILE * (R * g + g * g))
+        want = expected_launches(True, products, digits, loops=loops)
         for g in program:
             if g != want:
                 raise AssertionError(f"serve {tag}: a group's program "
@@ -3075,7 +3103,8 @@ def lm_secure(cfg0, params, he_params, spec: dict) -> dict:
     prog = next(p for p in sa.ctx._compiled.values()
                 if type(p).__name__ == "BlockMMProgram")
     chunks = hlt_chunks(prog)
-    want_prog = expected_launches(True, t * gl * gn, digits, chunks)
+    want_prog = expected_launches(True, t * gl * gn, digits, chunks,
+                                  program_loops(prog))
     hit = flushes[spec["hit"]]
     for g in hit["program"]:
         if g != want_prog:

@@ -53,6 +53,10 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class Ciphertext:
+    """One ciphertext, or a batch of B of one level (``c0``/``c1`` then
+    (B, level+1, N)) that the engine's ``mult``, ``key_switch``,
+    ``rescale``, ``add`` and ``sum`` run as one; a batch carries one
+    scale, so a caller whose elements differ in scale keeps theirs."""
     c0: torch.Tensor          # (level+1, N) int32, eval domain
     c1: torch.Tensor
     level: int
@@ -86,6 +90,13 @@ class Keys:
 # ---------------------------------------------------------------------------
 
 
+def _rows3(fn, x, *tables):
+    """A (B, M, N) kernel on x of shape (..., M, N): the leading dimensions
+    flattened into B (a view for a strided row slice of a batch)."""
+    out = fn(x.reshape((-1,) + tuple(x.shape[-2:])), *tables)
+    return out.reshape(tuple(x.shape[:-2]) + tuple(out.shape[-2:]))
+
+
 class CkksEngine:
     """CKKS engine on one device (``None`` = CUDA; raises without a GPU);
     ``datapath`` selects the (i)NTT lowering of every transform it runs."""
@@ -114,15 +125,17 @@ class CkksEngine:
         return self.basis(range(ell + 1))
 
     def _ntt(self, x, view):
+        """Forward NTT of (..., M, N) rows over ``view``."""
         if self.datapath == "pallas":
-            return ops.ntt(x[None], view.psi_brv_mont, view.moduli_u32,
-                           view.qneg_inv)[0]
+            return _rows3(ops.ntt, x, view.psi_brv_mont, view.moduli_u32,
+                          view.qneg_inv)
         return ntt.ntt(x, view.psi_brv, view.moduli)
 
     def _intt(self, x, view):
+        """Inverse NTT of (..., M, N) rows over ``view``."""
         if self.datapath == "pallas":
-            return ops.intt(x[None], view.psi_inv_brv_mont, view.n_inv_mont,
-                            view.moduli_u32, view.qneg_inv)[0]
+            return _rows3(ops.intt, x, view.psi_inv_brv_mont,
+                          view.n_inv_mont, view.moduli_u32, view.qneg_inv)
         return ntt.intt(x, view.psi_inv_brv, view.n_inv, view.moduli)
 
     # -- fused base-change tables (cached per level, float64 correction) -----
@@ -315,6 +328,14 @@ class CkksEngine:
         return Ciphertext(mm.addmod(a.c0, b.c0, q), mm.addmod(a.c1, b.c1, q),
                           a.level, max(a.scale, b.scale))
 
+    def sum(self, ct: Ciphertext) -> Ciphertext:
+        """The modular sum of a batch's B ciphertexts: the residues of a
+        chain of ``add`` calls in any order (the int64 sum of B terms below
+        2^30 is exact and is reduced once)."""
+        q = self.main_basis(ct.level).moduli
+        return Ciphertext(mm.montsum(ct.c0, q), mm.montsum(ct.c1, q),
+                          ct.level, ct.scale)
+
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         q = self.main_basis(a.level).moduli
         return Ciphertext(mm.submod(a.c0, b.c0, q), mm.submod(a.c1, b.c1, q),
@@ -338,7 +359,8 @@ class CkksEngine:
                           ct.scale)
 
     def mult(self, a: Ciphertext, b: Ciphertext, keys: Keys) -> Ciphertext:
-        """ct × ct with relinearization (no rescale; call rescale() after)."""
+        """ct × ct with relinearization (no rescale; call rescale() after);
+        two batches of B multiply element by element."""
         if a.level != b.level:
             raise ValueError(f"mult needs equal levels, got {a.level}, {b.level}")
         ell = a.level
@@ -365,64 +387,83 @@ class CkksEngine:
     # -- keyswitch (coarse-grained reference form) ---------------------------
 
     def key_switch(self, d, evk: EvalKey, ell: int):
-        """d: (ell+1, N) eval-domain poly under s'; returns (k0, k1) under s."""
+        """d: (..., ell+1, N) eval-domain poly(s) under s'; returns (k0, k1)
+        under s, each (..., ell+1, N).  Every row set it touches is a
+        slice: a digit's own limbs [s, e) of Q_ℓ, its generated limbs the
+        rest of Q_ℓ ∪ P in order, the key's Q_ℓ ∪ P rows its first ℓ+1 and
+        its special rows; no host data crosses to the device."""
         with trace.span("he.key_switch"):
-            p = self.params
             bases = self.tools.digit_bases(ell)
-            full = bases[0][2]
-            q = self.basis(full).moduli
-            pos = {g: i for i, g in enumerate(full)}
-            trace.h2d()
-            rows = torch.as_tensor(full, device=self.device)
-            acc0 = torch.zeros((len(full), p.N), dtype=torch.int32,
-                               device=self.device)
-            acc1 = torch.zeros_like(acc0)
+            q = self.basis(bases[0][2]).moduli
+            acc = [None, None]
             for j, (own, gen, _) in enumerate(bases):
-                dig_eval = d[own[0]: own[-1] + 1]
-                coeff = self._intt(dig_eval, self.basis(own))
-                ext = self.tools.mod_up(coeff, own, gen)
-                ext_eval = self._ntt(ext, self.basis(gen))
-                xfull = torch.zeros_like(acc0)
-                trace.h2d(2)            # each list index crosses to the device
-                xfull[[pos[i] for i in own]] = dig_eval
-                xfull[[pos[i] for i in gen]] = ext_eval
-                acc0 = mm.addmod(acc0, mm.mulmod(xfull, evk.k0[j][rows], q), q)
-                acc1 = mm.addmod(acc1, mm.mulmod(xfull, evk.k1[j][rows], q), q)
-            return (self._mod_down_eval(acc0, ell),
-                    self._mod_down_eval(acc1, ell))
+                self._digit_product(acc, d, own, gen,
+                                    (evk.k0[j], evk.k1[j]), ell, q)
+            k0 = self._mod_down_eval(acc[0], ell)
+            acc[0] = None
+            return k0, self._mod_down_eval(acc[1], ell)
+
+    def _digit_product(self, acc: list, d, own, gen, key, ell: int, q):
+        """acc[i] = acc[i] + (digit ``own`` of d raised to Q_ℓ ∪ P) × key[i]
+        rows mod q: the raised digit is its own rows [s, e) between the
+        generated rows of Q_ℓ and P, in place; one int64 multiply-add and
+        one reduction a key (the addmod of the mulmod: each term is below
+        2^60); the temporaries die on return."""
+        st, en = own[0], own[-1] + 1
+        dig_eval = d[..., st:en, :]
+        ext = self._ntt(self.tools.mod_up(
+            self._intt(dig_eval, self.basis(own)), own, gen), self.basis(gen))
+        x = torch.cat([ext[..., :st, :], dig_eval, ext[..., st:, :]],
+                      dim=-2).to(torch.int64)
+        del ext
+        for i, k in enumerate(key):
+            rows = self._key_rows(k, ell).to(torch.int64)
+            t = (x * rows if acc[i] is None
+                 else acc[i].to(torch.int64).addcmul_(x, rows))
+            acc[i] = t.remainder_(q).to(torch.int32)
+            del t
+
+    def _key_rows(self, k, ell: int):
+        """A key digit's (M, N) rows over the full basis -> its Q_ℓ ∪ P
+        rows (two slices)."""
+        p = self.params
+        if ell == p.L:
+            return k
+        return torch.cat([k[: ell + 1], k[p.num_main:]])
 
     def _mod_down_eval(self, x_full, ell: int, drop_last: bool = False,
                        datapath: Optional[str] = None):
         """ModDown from Q_ℓ ∪ P back to Q_ℓ, or with ``drop_last`` to
         Q_{ℓ-1} (the merged ModDown+Rescale, P ∪ {q_ℓ} → Q_{ℓ-1}); eval
-        domain in and out.  ``datapath`` overrides the engine's knob for
-        this call: on ``"pallas"`` with ``drop_last`` the whole tail runs
-        as ``intt_scale`` + ``moddown_finish`` (``ops.moddown_fused``), as
-        the reference's; otherwise the chain iNTT → BaseConv → NTT →
-        subtract → × P⁻¹ runs on the engine's transforms."""
+        domain in and out, (..., rows, N).  ``datapath`` overrides the
+        engine's knob for this call: on ``"pallas"`` with ``drop_last`` the
+        whole tail runs as ``intt_scale`` + ``moddown_finish``
+        (``ops.moddown_fused``), as the reference's; otherwise the chain
+        iNTT → BaseConv → NTT → subtract → × P⁻¹ runs on the engine's
+        transforms."""
         dp = self.datapath if datapath is None else datapath
         if dp == "pallas" and drop_last:
-            return ops.moddown_fused(x_full[None],
-                                     self.fused_moddown_tables(ell))[0]
+            return _rows3(ops.moddown_fused, x_full,
+                          self.fused_moddown_tables(ell))
         p = self.params
         spec = tuple(range(p.num_main, p.num_total))
         P = spec + ((ell,) if drop_last else ())
         Q = tuple(range(ell)) if drop_last else tuple(range(ell + 1))
-        x_p = x_full[ell + 1:]
+        x_p = x_full[..., ell + 1:, :]
         if drop_last:
-            x_p = torch.cat([x_p, x_full[ell:ell + 1]])
-        x_p_coeff = self._intt(x_p, self.basis(P))
-        conv = self.tools.base_conv(x_p_coeff, P, Q)
+            x_p = torch.cat([x_p, x_full[..., ell:ell + 1, :]], dim=-2)
         qv = self.basis(Q)
-        conv_eval = self._ntt(conv, qv)
-        p_inv = self.tools.moddown_pinv(P, Q)
-        return mm.mulmod(mm.submod(x_full[: len(Q)], conv_eval, qv.moduli),
-                         p_inv, qv.moduli)
+        conv_eval = self._ntt(self.tools.base_conv(
+            self._intt(x_p, self.basis(P)), P, Q), qv)
+        return mm.mulmod(mm.submod(x_full[..., : len(Q), :], conv_eval,
+                                   qv.moduli),
+                         self.tools.moddown_pinv(P, Q), qv.moduli)
 
     # -- rescale ---------------------------------------------------------------
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
-        """Divide by q_ℓ, dropping one level (eval-domain single-limb path)."""
+        """Divide by q_ℓ, dropping one level (eval-domain single-limb path;
+        a batch as one)."""
         with trace.span("he.rescale"):
             ell = ct.level
             q_ell = self.ctx.moduli_host[ell]
@@ -431,11 +472,11 @@ class CkksEngine:
                               ct.scale / q_ell)
 
     def _rescale_poly(self, x, ell: int):
-        last_coeff = self._intt(x[ell:ell + 1], self.basis((ell,)))
+        """(..., ℓ+1, N) eval rows -> (..., ℓ, N), divided by q_ℓ (floor)."""
         Q = tuple(range(ell))
-        conv = self.tools.base_conv(last_coeff, (ell,), Q)
         qv = self.main_basis(ell - 1)
-        conv_eval = self._ntt(conv, qv)
-        p_inv = self.tools.moddown_pinv((ell,), Q)
-        return mm.mulmod(mm.submod(x[:ell], conv_eval, qv.moduli), p_inv,
-                         qv.moduli)
+        conv_eval = self._ntt(self.tools.base_conv(
+            self._intt(x[..., ell:ell + 1, :], self.basis((ell,))), (ell,),
+            Q), qv)
+        return mm.mulmod(mm.submod(x[..., :ell, :], conv_eval, qv.moduli),
+                         self.tools.moddown_pinv((ell,), Q), qv.moduli)

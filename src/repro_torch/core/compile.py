@@ -66,7 +66,8 @@ from repro_torch.core import hlt_dist
 from repro_torch.core import trace as _trace
 from repro_torch.core.ckks import Ciphertext, CkksEngine, Keys
 from repro_torch.core.costmodel import (SMEM_PER_BLOCK, hlt_hoist_bytes,
-                                        hlt_stage_costs, pick_rotation_chunk,
+                                        hlt_stage_costs, loop_chunk,
+                                        pick_rotation_chunk,
                                         select_chain_schedules,
                                         select_schedule,
                                         sharded_collective_bytes, step2_chunk)
@@ -165,8 +166,9 @@ class HEContext:
     rotation-datapath launch each) and ``program_launches`` counts
     program calls (HEMMProgram, BlockMMProgram, HEMMChainProgram).  A
     program call and ``keygen`` open a ``core/trace.py`` scope on them, so
-    the spans ``he.call``, ``he.key_switch``, ``he.rescale`` and
-    ``he.keygen`` add their ``.ns``, ``.calls`` and ``.h2d`` keys here.
+    the spans ``he.call``, ``he.loop_chunk``, ``he.key_switch``,
+    ``he.rescale`` and ``he.keygen`` add their ``.ns``, ``.calls`` and
+    ``.h2d`` keys here.
 
     ``mesh`` (``launch/mesh.py`` :class:`~repro_torch.launch.mesh.Mesh`,
     this process one of its ranks) makes the ``"sharded"`` schedules
@@ -605,8 +607,7 @@ class CompiledHLT:
         eng, level = self.ctx.eng, self.plan.level
         if self.plan.datapath == "pallas":
             return ops.moddown_fused(acc, eng.fused_moddown_tables(level))
-        return torch.stack([eng._mod_down_eval(a, level, drop_last=True,
-                                               datapath="xla") for a in acc])
+        return eng._mod_down_eval(acc, level, drop_last=True, datapath="xla")
 
     def __call__(self, items):
         self.ctx._check_generation(self._gen)
@@ -825,6 +826,55 @@ class CompiledHLT:
 # ---------------------------------------------------------------------------
 
 
+def _stack(cts) -> Ciphertext:
+    """Ciphertexts of one level -> one batch (the first one's scale)."""
+    return Ciphertext(torch.stack([ct.c0 for ct in cts]),
+                      torch.stack([ct.c1 for ct in cts]), cts[0].level,
+                      cts[0].scale)
+
+
+def product_sums(ctx: HEContext, groups, step2_batch: int) -> list:
+    """Σ_k rescale(mult(a_k, b_k)) for each group of (a, b) ciphertext
+    pairs: the residues of the per-product loop, in chunks.
+
+    The products of all groups, group after group, run as batched
+    ``mult`` → ``rescale`` in consecutive chunks of
+    ``costmodel.loop_chunk`` (sized from the Step 2 of ``step2_batch``
+    HLTs whose transients the chunk stays within); each chunk's products
+    are summed per group (``CkksEngine.sum``) into that group's
+    accumulator.  A product's scale is a.scale·b.scale / q_ℓ, as the
+    engine's, and a sum's the largest of its terms', as ``add``'s.  Span
+    ``he.loop_chunk`` a chunk."""
+    eng = ctx.eng
+    pairs = [(g, a, b) for g, grp in enumerate(groups) for a, b in grp]
+    size = loop_chunk(eng.params, pairs[0][1].level, len(pairs), step2_batch)
+    acc: list = [None] * len(groups)
+    for lo in range(0, len(pairs), size):
+        with _trace.span("he.loop_chunk"):
+            for g, part in _chunk_sums(ctx, pairs[lo:lo + size]):
+                acc[g] = part if acc[g] is None else eng.add(acc[g], part)
+    return acc
+
+
+def _chunk_sums(ctx: HEContext, chunk) -> list:
+    """One chunk of (group, a, b) products as one batch: [(group, the sum
+    of the chunk's products of that group)], the batch freed on return."""
+    eng = ctx.eng
+    q_ell = eng.ctx.moduli_host[chunk[0][1].level]
+    prod = eng.rescale(eng.mult(_stack([a for _, a, _ in chunk]),
+                                _stack([b for _, _, b in chunk]), ctx.keys))
+    out, i = [], 0
+    while i < len(chunk):                   # the chunk's run of each group
+        g, j = chunk[i][0], i
+        while j < len(chunk) and chunk[j][0] == g:
+            j += 1
+        out.append((g, eng.sum(Ciphertext(
+            prod.c0[i:j], prod.c1[i:j], prod.level,
+            max(a.scale * b.scale / q_ell for _, a, b in chunk[i:j])))))
+        i = j
+    return out
+
+
 def _stage_sum(name: str) -> property:
     return property(lambda plan: getattr(plan.step1, name)
                     + getattr(plan.step2, name),
@@ -907,7 +957,7 @@ class HEMMProgram:
             return self._run(ctA, ctB)
 
     def _run(self, ctA: Ciphertext, ctB: Ciphertext) -> Ciphertext:
-        eng, keys, p = self.ctx.eng, self.ctx.keys, self.mm_plan
+        eng, p = self.ctx.eng, self.mm_plan
         if not ctA.level == ctB.level == self.plan.level:
             raise ValueError(f"input levels {ctA.level}, {ctB.level}; "
                              f"compiled for {self.plan.level}")
@@ -936,10 +986,8 @@ class HEMMProgram:
             outs = ([run(inA) for run in self._step2[:p.l]]
                     + [run(inB) for run in self._step2[p.l:]])
         self._mark("step2")
-        acc: Optional[Ciphertext] = None
-        for k in range(p.l):
-            prod = eng.rescale(eng.mult(outs[k], outs[p.l + k], keys))
-            acc = prod if acc is None else eng.add(acc, prod)
+        acc, = product_sums(self.ctx, [list(zip(outs[:p.l], outs[p.l:]))],
+                            2 * p.l)
         self._mark("mult_rescale")
         return acc
 
@@ -1065,7 +1113,7 @@ class BlockMMProgram:
             return self._run(A_tiles, B_tiles)
 
     def _run(self, A_tiles, B_tiles) -> list:
-        eng, keys, p = self.ctx.eng, self.ctx.keys, self.mm_plan
+        eng, p = self.ctx.eng, self.mm_plan
         gm, gl, gn = self.plan.grid
         if len(A_tiles) != gm or any(len(r) != gl for r in A_tiles):
             raise ValueError(f"A tiles are not a {gm}x{gl} grid")
@@ -1098,18 +1146,15 @@ class BlockMMProgram:
                   + [hst[nA + t] for _ in range(p.l) for t in range(nB)])
         res = self._step2(items2)
         self._mark("step2")
-        acc: list = [[None] * gn for _ in range(gm)]
-        for kk in range(p.l):
-            Ak = {t: res[kk * nA + ti] for ti, t in enumerate(ik)}
-            Bk = {t: res[p.l * nA + kk * nB + ti] for ti, t in enumerate(kj)}
-            for i in range(gm):
-                for j in range(gn):
-                    for k in range(gl):
-                        prod = eng.rescale(eng.mult(Ak[i, k], Bk[k, j], keys))
-                        acc[i][j] = (prod if acc[i][j] is None
-                                     else eng.add(acc[i][j], prod))
+        # C[i][j] = Σ_kk Σ_k A'_kk[i][k]·B'_kk[k][j], one group a tile
+        A = lambda kk, i, k: res[kk * nA + i * gl + k]             # noqa: E731
+        B = lambda kk, k, j: res[p.l * nA + kk * nB + k * gn + j]  # noqa: E731
+        sums = product_sums(self.ctx, [
+            [(A(kk, i, k), B(kk, k, j)) for kk in range(p.l)
+             for k in range(gl)] for i in range(gm) for j in range(gn)],
+            len(items2))
         self._mark("mult_rescale")
-        return acc
+        return [sums[i * gn:(i + 1) * gn] for i in range(gm)]
 
 
 def compile_blockmm(ctx: HEContext, plan, grid, *,

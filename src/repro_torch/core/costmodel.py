@@ -175,6 +175,39 @@ def step2_chunk(params: "HEParams", level: int, batch: int) -> int:
     return -(-batch // n_chunks)
 
 
+def loop_transient_bytes(params: "HEParams", level: int) -> int:
+    """Device bytes one product of the batched mult → rescale loop
+    (``compile.product_sums``) at input level ``level`` holds at its peak,
+    counted in rows of N u32 words, n = ℓ+1 over Q_ℓ and F = n + k over
+    Q_ℓ ∪ P.  Through the key switch the four stacked inputs and d0, d1,
+    d2 stay (7·n) beside the two accumulators (2·F); then the largest of
+    a key product (the raised digit and an accumulator in int64, the new
+    accumulator: 5·F) or a digit's BaseConv (at most 5·F + 4), a ModDown's
+    subtraction (its NTT'd conversion and the int64 temporaries, 7.25·n),
+    and ``mult``'s last two additions (16.25·n in all)."""
+    n = level + 1
+    full = n + params.k
+    rows4 = max(28 * n + 28 * full + 16, 57 * n + 8 * full, 65 * n)
+    return rows4 * params.N
+
+
+def loop_chunk(params: "HEParams", level: int, batch: int,
+               step2_batch: int) -> int:
+    """Products a chunk when ``batch`` products at input level ``level``
+    run as batched mult → rescale (``compile.product_sums``): as few
+    chunks as keep each within what a chunk of the same program's Step 2
+    (``step2_batch`` HLTs at level ℓ+1) frees once it has written its
+    results, which stay through the loop (the fused output and the drop
+    rows), of near-equal size: so the loop never sets a call's memory
+    peak.  The residues do not depend on the chunking."""
+    lv2 = level + 1
+    freed = hlt_transient_bytes(params, lv2) - 2 * lv2 * 4 * params.N
+    cap = max(1, freed * step2_chunk(params, lv2, step2_batch)
+              // loop_transient_bytes(params, level))
+    n_chunks = -(-batch // cap)
+    return -(-batch // n_chunks)
+
+
 def select_schedule(params: "HEParams", nbeta: int | None = None,
                     smem_bytes: float = SMEM_PER_BLOCK, *,
                     n_model: int = 1, n_ct: int = 1,

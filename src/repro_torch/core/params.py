@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
 
 from repro_torch.core import modmath as mm, trace
 
@@ -253,4 +254,9 @@ def _context(params: HEParams, device: torch.device) -> PrimeContext:
 
 
 def get_context(params: HEParams, device="cpu") -> PrimeContext:
+    """The cached context of (params, device); under a ``FakeTensorMode``
+    (the cost reports) a fresh one of fake tensors, kept out of the cache
+    that real callers read."""
+    if detect_fake_mode() is not None:
+        return _context.__wrapped__(params, torch.device(device))
     return _context(params, torch.device(device))

@@ -17,6 +17,10 @@ from repro_torch.core.params import PrimeContext
 #: floor correction of ``base_conv`` (the reference's ``+ 1e-9``, f64)
 BASE_CONV_EPS = 1e-9
 
+#: products of residues summed in int64 before one reduction: each is
+#: below 2^60 (every modulus is below 2^30), so 7 stay below 2^63
+BASE_CONV_GROUP = 7
+
 
 class RnsTools:
     """Per-context cache of base-conversion / rescale / moddown tables
@@ -68,18 +72,29 @@ class RnsTools:
     def base_conv(self, x, S: tuple, T: tuple):
         """Exact base conversion of the [0, D) representative.
 
-        x: (|S|, N) residues over S. Returns (|T|, N) int32 residues over T.
-        The overflow count v = floor(Σ y_i/d_i + 1e-9) is summed in float64
-        in ascending row order."""
+        x: (..., |S|, N) residues over S, any leading (batch) dimensions.
+        Returns (..., |T|, N) int32 residues over T.  The overflow count
+        v = floor(Σ y_i/d_i + 1e-9) is summed in float64 in ascending row
+        order for each coefficient.  Σ_i y_i·W_ti runs over the source rows
+        in place, reduced mod t once every ``BASE_CONV_GROUP`` rows, so no
+        (|T|, |S|, N) product is held."""
         hat_inv, W, D_mod_t, inv_d, qs, qt = self._bc_device(S, T)
-        y = mm.mulmod(x, hat_inv, qs).to(torch.int64)          # (|S|, N)
-        s = y[0].to(torch.float64) * inv_d[0]
-        for i in range(1, y.shape[0]):
-            s = s + y[i].to(torch.float64) * inv_d[i]
-        v = torch.floor(s + BASE_CONV_EPS).to(torch.int64)    # (N,)
-        acc = ((y[None] * W[:, :, None]) % qt[:, None]).sum(dim=1) % qt
-        corr = (v[None, :] * D_mod_t) % qt
-        return ((acc + qt - corr) % qt).to(torch.int32)
+        y = mm.mulmod(x, hat_inv, qs).to(torch.int64)     # (..., |S|, N)
+        s = y[..., 0, :].to(torch.float64) * inv_d[0]
+        for i in range(1, y.shape[-2]):
+            s = s + y[..., i, :].to(torch.float64) * inv_d[i]
+        v = torch.floor(s + BASE_CONV_EPS).to(torch.int64)   # (..., N)
+        acc = None
+        for g in range(0, y.shape[-2], BASE_CONV_GROUP):
+            part = y[..., g:g + 1, :] * W[:, g:g + 1]
+            for i in range(g + 1, min(g + BASE_CONV_GROUP, y.shape[-2])):
+                part.addcmul_(y[..., i:i + 1, :], W[:, i:i + 1])
+            part.remainder_(qt)
+            acc = part if acc is None else acc.add_(part)
+        del part
+        corr = (v[..., None, :] * D_mod_t).remainder_(qt)
+        return acc.remainder_(qt).add_(qt).sub_(corr).remainder_(qt).to(
+            torch.int32)
 
     def mod_up(self, digit_coeff, S: tuple, T_new: tuple):
         """Raise a digit (coeff domain) from basis S: the generated limbs

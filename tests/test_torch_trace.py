@@ -14,10 +14,11 @@ from repro_torch.configs.fame_sets import FAME_VERIFY_SETS
 from repro_torch.core import trace
 from repro_torch.core.ckks import CkksEngine
 from repro_torch.core.compile import HEContext, compile_hemm
+from repro_torch.core.costmodel import loop_chunk
 from repro_torch.core.hemm import encrypt_matrix, plan_hemm
 
 SHAPE = (4, 4, 4)
-SPANS = ("he.call", "he.key_switch", "he.rescale")
+SPANS = ("he.call", "he.loop_chunk", "he.key_switch", "he.rescale")
 STAGES = ("he.step1", "he.step2_hoist", "he.step2", "he.loop")
 
 
@@ -48,12 +49,18 @@ def _call(s: dict):
 
 
 def _expected_h2d(s: dict) -> int:
-    """l key switches at the loop's level, each 1 + 2·d copies (its row
-    table and two list indices a digit); nothing else copies once the
-    first call has built its tables."""
+    """Nothing copies once the first call has built its tables: the key
+    switch reads its rows as slices (it made 1 + 2·d copies a product
+    while it built a row table and two list indices a digit)."""
+    return 0
+
+
+def _chunks(s: dict) -> int:
+    """The loop's chunks a call: l products at the loop's level in chunks
+    of ``costmodel.loop_chunk``, beside Step 2's 2·l HLTs."""
     prog = s["prog"]
-    d = len(s["ctx"].eng.tools.digit_bases(prog.plan.level - 2))
-    return prog.mm_plan.l * (1 + 2 * d)
+    l, level = prog.mm_plan.l, prog.plan.level - 2
+    return -(-l // loop_chunk(s["ctx"].eng.params, level, l, 2 * l))
 
 
 @pytest.fixture(scope="module")
@@ -70,13 +77,15 @@ def test_keygen_adds_one_span(s):
 
 
 def test_one_call_adds_its_spans(s):
-    l = SHAPE[1]
+    chunks = _chunks(s)
     _, got = _call(s)
     assert got["he.call.calls"] == 1
-    assert got["he.key_switch.calls"] == l and got["he.rescale.calls"] == l
+    assert chunks > 1 and got["he.loop_chunk.calls"] == chunks
+    assert got["he.key_switch.calls"] == got["he.rescale.calls"] == chunks
     assert got["he.call.h2d"] == got["he.key_switch.h2d"] == _expected_h2d(s)
     assert got["he.rescale.h2d"] == 0
-    assert got["he.call.ns"] >= got["he.key_switch.ns"] + got["he.rescale.ns"]
+    assert got["he.call.ns"] >= got["he.loop_chunk.ns"] >= \
+        got["he.key_switch.ns"] + got["he.rescale.ns"]
     assert got["he.key_switch.ns"] > 0 and got["he.rescale.ns"] > 0
     # the context's own counters count as before; keygen's stay put
     assert got["hlt_launches"] == 2 and got["program_launches"] == 1
@@ -122,7 +131,7 @@ def test_ranges_on_and_off(s):
     span and stage is a host range inside ``he.call``, the loop's spans
     inside ``he.loop``, and the stage hook outside every stage range; with
     them off no event carries a span's or a stage's name."""
-    l = SHAPE[1]
+    chunks = _chunks(s)
 
     def hook(name):
         with torch.profiler.record_function(f"test.hook.{name}"):
@@ -140,12 +149,13 @@ def test_ranges_on_and_off(s):
              if e.name.startswith("test.hook.")]
     assert len(got["he.call"]) == 1 and len(hooks) == 5
     assert all(len(got[n]) == 1 for n in STAGES)
-    assert len(got["he.key_switch"]) == len(got["he.rescale"]) == l
+    assert len(got["he.loop_chunk"]) == len(got["he.key_switch"]) == \
+        len(got["he.rescale"]) == chunks
     inside = lambda iv, out: out[0] <= iv[0] and iv[1] <= out[1]  # noqa: E731
     call, loop = got["he.call"][0], got["he.loop"][0]
     for n in names[1:]:
         assert all(inside(iv, call) for iv in got[n]), n
-    for n in ("he.key_switch", "he.rescale"):
+    for n in ("he.loop_chunk", "he.key_switch", "he.rescale"):
         assert all(inside(iv, loop) for iv in got[n]), n
     for h in hooks:
         assert not any(a < h[1] and h[0] < b
