@@ -11,7 +11,11 @@ closes::
     <name>.h2d      host-to-device copies started inside it (``h2d()``),
                     nested spans included
 
-Outside any scope a span records nothing, and ``h2d()`` counts nothing.
+``count(name, n)`` adds ``n`` to ``<name>`` (an int, or a device tensor
+added without a synchronise; the table's reader converts it).
+
+Outside any scope a span records nothing, and ``h2d()`` and ``count()``
+count nothing.
 Keys stay flat integers beside the table's own, so a snapshot
 (``dict(ctx.counters)``) and a difference of two snapshots keep working.
 
@@ -29,6 +33,10 @@ profiler's clock with the device's work.  The profiler draws each such
 range on the device's track too, as a CUDA-typed event; a reader that
 counts device work has to leave those out, so the benchmark does not turn
 ranges on.
+
+``synced(fn)`` calls ``fn`` (a device synchronise) as each span inside
+the block opens and closes, so that a span's host time holds its device
+work; a caller that times spans this way sets it, no one else.
 
 State lives in context variables: each thread (and asyncio task) has its
 own stack of scopes.
@@ -58,6 +66,8 @@ _SCOPE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_trace_scope", default=None)
 _RANGES: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_trace_ranges", default=False)
+_SYNC: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_trace_sync", default=None)
 _KEYS: dict = {}
 
 
@@ -101,6 +111,29 @@ def ranges(on: bool = True):
         _RANGES.reset(token)
 
 
+@contextlib.contextmanager
+def synced(fn):
+    """Spans inside the block call ``fn()`` as they open and close."""
+    token = _SYNC.set(fn)
+    try:
+        yield
+    finally:
+        _SYNC.reset(token)
+
+
+def active() -> bool:
+    """Whether a scope is open (so that spans and counts record)."""
+    return _SCOPE.get() is not None
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` (an int or a device tensor) to ``name`` in the active
+    scope's table."""
+    s = _SCOPE.get()
+    if s is not None:
+        s.table[name] = s.table.get(name, 0) + n
+
+
 def h2d(n: int = 1) -> None:
     """Count ``n`` host-to-device copies started here."""
     s = _SCOPE.get()
@@ -125,7 +158,7 @@ class span:
     """``with span(name):`` times and counts the block into the active
     scope's table (nothing outside a scope)."""
 
-    __slots__ = ("name", "scope", "rf", "t0", "c0")
+    __slots__ = ("name", "scope", "rf", "t0", "c0", "sync")
 
     def __init__(self, name: str):
         self.name = name
@@ -135,6 +168,9 @@ class span:
         if s is not None:
             self.rf = _open_range(self.name, s.call) if _RANGES.get() else None
             self.c0 = s.copies[0]
+            self.sync = _SYNC.get()
+            if self.sync is not None:
+                self.sync()
             self.t0 = time.perf_counter_ns()
         return self
 
@@ -142,6 +178,8 @@ class span:
         s = self.scope
         if s is None:
             return
+        if self.sync is not None:
+            self.sync()
         dt = time.perf_counter_ns() - self.t0
         if self.rf is not None:
             self.rf.__exit__(None, None, None)

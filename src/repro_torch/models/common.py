@@ -130,6 +130,90 @@ class ModelConfig:
             return 0
         return self.num_layers // self.attn_period
 
+    # settings a subclass may change; not fields, so ``asdict`` of every
+    # configuration stays the reference's
+    @property
+    def softmax_scale(self) -> float:
+        """The attention scores' scale."""
+        return 1.0 / math.sqrt(self.hdim)
+
+    @property
+    def rotary(self) -> bool:
+        """Whether attention applies RoPE to Q and K."""
+        return True
+
+    @property
+    def embedding_multiplier(self) -> float:
+        """The embedding's scale."""
+        return 1.0
+
+    @property
+    def logits_scaling(self) -> float:
+        """The divisor of the head's logits."""
+        return 1.0
+
+    @property
+    def ssm_state_dtype(self):
+        """The dtype of the Mamba state ``h`` in a serve cache (None: the
+        activations')."""
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """A hybrid of Mamba-2 and attention layers, each followed by a routed
+    MoE and a shared expert (GraniteMoeHybrid, family ``hybrid_moe``).
+
+    ``layer_pattern`` is one period of mixers, ``"mamba"`` or
+    ``"attention"`` at their published offsets; ``num_layers`` is a whole
+    number of periods, and a block of ``models/transformer.py`` is one
+    period.  Layer ℓ:  x ← x + r·mixer(rms(x));  x ← x + r·(moe(rms(x)) +
+    shared(rms(x))), r = ``residual_multiplier``.  The embedding is scaled
+    by ``embedding_multiplier``, the logits divided by ``logits_scaling``.
+    Attention has no positional encoding (``position_embedding`` "nope")
+    and scales its scores by ``attention_multiplier``.  ``d_ff`` is one
+    routed expert's width, ``shared_ff`` the shared expert's.  The cache
+    keeps the Mamba state ``h`` in float32: stored in bfloat16, a decay
+    exp(dt·A) above 1 − 2⁻⁹ rounds to 1, and a decode drifts from the
+    float32 model step by step."""
+
+    layer_pattern: tuple = ()
+    shared_ff: int = 0
+    position_embedding: str = "nope"
+    attention_multiplier: float = 0.0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.attention_multiplier or 1.0 / math.sqrt(self.hdim)
+
+    @property
+    def rotary(self) -> bool:
+        return self.position_embedding == "rope"
+
+    @property
+    def ssm_state_dtype(self):
+        return torch.float32
+
+    def param_count(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        h, kv, hd = self.num_heads, self.kv_heads, self.hdim
+        attn = d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+        din = self.ssm_expand * d
+        nheads = din // self.ssm_head_dim
+        ssm = (d * (2 * din + 2 * self.ssm_state + nheads)
+               + (din + 2 * self.ssm_state) * (self.conv_kernel + 1)
+               + din * d)
+        ffn = (self.num_experts * 3 * d * f + d * self.num_experts
+               + 3 * d * self.shared_ff)
+        na = self.layer_pattern.count("attention")
+        per = (na * attn + (len(self.layer_pattern) - na) * ssm
+               + len(self.layer_pattern) * ffn)
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return self.num_layers // len(self.layer_pattern) * per + emb
+
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -169,18 +253,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
                      dim=-1).to(x.dtype)
 
 
-def decode_attention(q, k, v, kv_len) -> torch.Tensor:
+def decode_attention(q, k, v, kv_len, scale=None) -> torch.Tensor:
     """Sq=1 attention: one masked softmax over the full cache.
 
     q: (B, 1, H, D); k, v: (B, Skv, KV, D); kv_len: the slot last written —
     an int (uniform batch) or a (B,) tensor (continuous batching: slots
     admitted at different prompt lengths decode at different positions).
     Keys at positions > kv_len are masked, so the row just written at
-    kv_len stays visible."""
+    kv_len stays visible.  ``scale``: the scores' scale (1/√D when
+    None)."""
     B, _, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, 1, KV, H // KV, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (
+        1.0 / math.sqrt(D) if scale is None else scale)
     kpos = torch.arange(Skv, device=q.device)
     kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(B)
     mask = kpos[None, :] > kv_len[:, None]
@@ -191,16 +277,18 @@ def decode_attention(q, k, v, kv_len) -> torch.Tensor:
 
 
 def blockwise_attention(q, k, v, *, causal: bool, q_offset=0,
-                        block: int = 1024) -> torch.Tensor:
+                        block: int = 1024, scale=None) -> torch.Tensor:
     """Flash-style online-softmax attention over KV tiles of ``block``
     (Skv zero-padded to a whole number of tiles, the padding masked).
 
     Never materializes the (Sq, Skv) score matrix.  q: (B, Sq, H, D);
-    k, v: (B, Skv, KV, D); query i sits at position ``q_offset + i``."""
+    k, v: (B, Skv, KV, D); query i sits at position ``q_offset + i``;
+    ``scale``: the scores' scale (1/√D when None)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     g = H // KV
-    scale = 1.0 / math.sqrt(D)      # applied in float32, as the reference
+    if scale is None:       # applied in float32, as the reference
+        scale = 1.0 / math.sqrt(D)
     nblk = max(1, (Skv + block - 1) // block)
     pad = nblk * block - Skv
     if pad:
@@ -351,12 +439,15 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     k, v = x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, kv, hd), positions, cfg.rope_theta)
+    k = k.reshape(B, S, kv, hd)
+    if cfg.rotary:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     v = v.reshape(B, S, kv, hd)
+    scale = cfg.softmax_scale
     if kv_cache is None:
         out = blockwise_attention(q, k, v, causal=causal,
-                                  block=cfg.attn_block)
+                                  block=cfg.attn_block, scale=scale)
         return out.reshape(B, S, h * hd) @ p["wo"], None
     kc, vc = kv_cache["k"], kv_cache["v"]
     if R is not None:
@@ -380,10 +471,11 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
         kc[:, cl:cl + S] = k
         vc[:, cl:cl + S] = v
     if S == 1:      # decode: one masked softmax over the cache
-        out = decode_attention(q, kc, vc, cache_len)
+        out = decode_attention(q, kc, vc, cache_len, scale=scale)
     else:
         out = blockwise_attention(q, kc, vc, causal=True,
-                                  q_offset=cache_len, block=cfg.attn_block)
+                                  q_offset=cache_len, block=cfg.attn_block,
+                                  scale=scale)
     return out.reshape(B, S, h * hd) @ p["wo"], {"k": kc, "v": vc}
 
 

@@ -37,9 +37,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as sh
-from repro_torch.models.common import ModelConfig, col_in, dense_init
+from repro_torch.models.common import (ModelConfig, col_in, dense_init,
+                                       mlp_forward, mlp_init)
 
 GROUP = 4096      # tokens per dispatch group
 
@@ -87,6 +89,8 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     pos = torch.cumsum(flat, dim=1) - flat                       # (G, g·k, E)
     pos = (pos * flat).sum(-1).reshape(G, g, k)                  # (G, g, k)
     keep = pos < cap
+    if trace.active():      # (token, expert) pairs past the capacity
+        trace.count("lm.moe.dropped", (~keep).sum())
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
 
     pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
@@ -110,6 +114,27 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     density_proxy = probs.mean(dim=(0, 1))
     aux = E * torch.sum(density * density_proxy)
     return y.reshape(B, S, d), aux
+
+
+def shared_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """A routed MoE under ``moe`` (``moe_init``'s leaves, each expert's
+    matrices of standard deviation 1/√fan-in of the expert, where
+    ``moe_init`` divides by √E as the reference does) and, under
+    ``shared``, the shared expert: a SwiGLU MLP of width
+    ``cfg.shared_ff`` that every token takes."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    moe = {"router": dense_init(gen, (d, E), torch.float32),
+           "wi_up": dense_init(gen, (E, d, f), cfg.adtype, in_axis=1),
+           "wo": dense_init(gen, (E, f, d), cfg.adtype, in_axis=1),
+           "wi_gate": dense_init(gen, (E, d, f), cfg.adtype, in_axis=1)}
+    return {"moe": moe, "shared": mlp_init(cfg, gen, d_ff=cfg.shared_ff)}
+
+
+def shared_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """The routed experts' output plus the shared expert's, counted once:
+    (y, aux_loss)."""
+    y, aux = moe_forward(cfg, p["moe"], x)
+    return y + mlp_forward(cfg, p["shared"], x), aux
 
 
 def _routing(cfg: ModelConfig, probs: torch.Tensor, g: int):

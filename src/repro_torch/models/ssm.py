@@ -126,21 +126,25 @@ def ssm_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, *, state=None):
 
 
 def _scan(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt, state, conv_state):
-    """The SSD over (B, S, H, hd): the recurrence from ``state["h"]``, or
-    the chunked form without a state.  Returns (y, new_state)."""
+    """The SSD over (B, S, H, hd): from ``state["h"]``, the chunked form
+    for a prefill and the recurrence for a decode step; without a state,
+    the chunked form.  Returns (y, new_state)."""
     S = xs.shape[1]
 
-    if state is not None:
-        # the reference's lax.scan over tokens
+    if state is not None and S > 1:
+        y, h = _ssd_chunked(cfg, xs, Bmat, Cmat, dA, dt, h0=state["h"])
+        new_state = {"h": h.to(state["h"].dtype), "conv": conv_state}
+    elif state is not None:
+        # the reference's lax.scan over tokens, in the state's dtype
+        # (``cfg.ssm_state_dtype``); y in the input's
         h = state["h"]                                            # (B,H,hd,n)
+        f = h.dtype
         ys = []
         for t in hlo_cost.loop(S, "ssd_recurrence"):
-            xt, bt, ct = xs[:, t], Bmat[:, t], Cmat[:, t]
-            dh = torch.einsum("bhd,bn,bh->bhdn", xt, bt,
-                              dt[:, t].to(xt.dtype))
-            h = h * torch.exp(dA[:, t])[:, :, None, None].to(h.dtype) \
-                + dh.to(h.dtype)
-            ys.append(torch.einsum("bhdn,bn->bhd", h, ct))
+            xt, bt, ct = xs[:, t].to(f), Bmat[:, t].to(f), Cmat[:, t].to(f)
+            dh = torch.einsum("bhd,bn,bh->bhdn", xt, bt, dt[:, t].to(f))
+            h = h * torch.exp(dA[:, t])[:, :, None, None].to(f) + dh
+            ys.append(torch.einsum("bhdn,bn->bhd", h, ct).to(xs.dtype))
         y = hlo_cost.stack(ys, S, dim=1)                          # (B,S,H,hd)
         new_state = {"h": h, "conv": conv_state}
     else:
@@ -219,12 +223,15 @@ def _ssm_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, R, state):
     return row_out(y, p["out_proj"], g), new_state
 
 
-def _ssd_chunked(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt):
+def _ssd_chunked(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt, h0=None):
     """Chunked SSD: intra-chunk products + the inter-chunk recurrence.
 
     xs: (B, S, H, hd), Bmat / Cmat: (B, S, n), dA / dt: (B, S, H) float32.
     S is right-padded to a multiple of the chunk; padded steps come after
-    every real one, so they cannot reach y[:, :S]."""
+    every real one, so they cannot reach y[:, :S], and they neither decay
+    nor add to the state (dA = dt = 0).  With ``h0`` (B, H, hd, n), the
+    state before the first token, returns (y, the state after the last
+    token); else y."""
     B, S, H, hd = xs.shape
     n = Bmat.shape[-1]
     Q = min(cfg.ssm_chunk, S)
@@ -257,7 +264,8 @@ def _ssd_chunked(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt):
     chunk_decay = torch.exp(Aend[..., -1])                       # (B,nc,H)
 
     # the reference's lax.scan over chunks: h_prev of each chunk
-    h = torch.zeros((B, H, hd, n), dtype=xs.dtype, device=xs.device)
+    h = (torch.zeros((B, H, hd, n), dtype=xs.dtype, device=xs.device)
+         if h0 is None else h0.to(xs.dtype))
     h_prevs = []
     for c in hlo_cost.loop(nc, "ssd_chunks"):
         h_prevs.append(h)
@@ -267,7 +275,8 @@ def _ssd_chunked(cfg: ModelConfig, xs, Bmat, Cmat, dA, dt):
     decay_in = torch.exp(Aend)                                   # (B,nc,H,Q)
     y_inter = torch.einsum("bcqn,bchdn,bchq->bcqhd", C_c, h_prevs,
                            decay_in.to(xs_c.dtype))
-    return (y_intra + y_inter).reshape(B, S, H, hd)[:, :S_out]
+    y = (y_intra + y_inter).reshape(B, S, H, hd)[:, :S_out]
+    return y if h0 is None else (y, h)
 
 
 def ssm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
@@ -275,7 +284,7 @@ def ssm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
     conv_dim = d_in + 2 * nstate
     return {
         "h": torch.zeros((batch, nheads, cfg.ssm_head_dim, nstate),
-                         dtype=dtype, device=device),
+                         dtype=cfg.ssm_state_dtype or dtype, device=device),
         "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim),
                             dtype=dtype, device=device),
     }

@@ -44,15 +44,19 @@ loss.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import trace
 from repro_torch.core.ckks import resolve_device
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ModelConfig, attn_forward, attn_init,
+from repro_torch.models.common import (HybridMoEConfig, ModelConfig,
+                                       attn_forward, attn_init,
                                        attn_replicated, dense_init,
                                        mlp_forward, mlp_init, rmsnorm)
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -67,8 +71,22 @@ def _block_structure(cfg: ModelConfig):
     """(num_blocks, sub-layer plan per block). A block:
     dense/moe/audio: 1 attn+ffn layer; ssm: 1 ssd layer;
     hybrid: (attn_period-1) ssd + 1 attn+mlp;
+    hybrid_moe: one period of ``layer_pattern``, each layer a mixer (ssd
+    or attn) and a routed + shared MoE, run in the pattern's order;
     vlm: 1 cross-attn + (cross_attn_period-1) self-attn layers."""
     f = cfg.family
+    if f == "hybrid_moe":
+        pattern = cfg.layer_pattern
+        if (not pattern or cfg.num_layers % len(pattern)
+                or set(pattern) - {"mamba", "attention"}):
+            raise ValueError(f"layer_pattern {pattern} for "
+                             f"{cfg.num_layers} layers")
+        if sh.get_rules().mesh is not None:
+            raise NotImplementedError(f"{cfg.name}: family hybrid_moe runs "
+                                      "on one device")
+        return cfg.num_layers // len(pattern), {
+            "attn": pattern.count("attention"),
+            "ssm": pattern.count("mamba"), "cross": 0}
     if f in ("dense", "moe", "audio"):
         return cfg.num_layers, {"attn": 1, "ssm": 0, "cross": 0}
     if f == "ssm":
@@ -90,9 +108,100 @@ def _block_structure(cfg: ModelConfig):
     raise ValueError(f)
 
 
+def _hybrid_moe_init(cfg: HybridMoEConfig, gen: torch.Generator) -> dict:
+    """A period's layers, drawn in the pattern's order: ``ssm`` (the SSD
+    layers, each with ``ln`` before the mixer) and ``attn_layers`` (``ln1``
+    before it), each layer with ``ln2`` and ``ffn`` (``moe`` and
+    ``shared``).  The SSD's conv bias is drawn, and A and dt's bias as
+    Mamba-2 draws them: A uniform in [1, 16], dt log-uniform in
+    [0.001, 0.1]."""
+    d = cfg.d_model
+
+    def ones():
+        return torch.ones((d,), dtype=cfg.adtype, device=gen.device)
+
+    def uniform(n, lo, hi):
+        return lo + (hi - lo) * torch.rand((n,), generator=gen,
+                                           device=gen.device)
+
+    p = {"ssm": [], "attn_layers": []}
+    for kind in cfg.layer_pattern:
+        if kind == "mamba":
+            sp = ssm_mod.ssm_init(cfg, gen)
+            H, C = sp["a_log"].shape[0], sp["conv_b"].shape[0]
+            sp["conv_b"] = (uniform(C, -1, 1) / cfg.conv_kernel ** 0.5).to(
+                cfg.adtype)
+            sp["a_log"] = torch.log(uniform(H, 1.0, 16.0))
+            dt = torch.exp(uniform(H, math.log(1e-3), math.log(1e-1)))
+            sp["dt_bias"] = dt + torch.log(-torch.expm1(-dt))
+            layer = dict(sp, ln=ones())
+            p["ssm"].append(layer)
+        else:
+            layer = {"attn": attn_init(cfg, gen), "ln1": ones()}
+            p["attn_layers"].append(layer)
+        layer.update(ln2=ones(), ffn=moe_mod.shared_init(cfg, gen))
+    return p
+
+
+#: a ``hybrid_moe`` checkpoint's leaves that the port keeps in float32
+_HYBRID_FLOAT32 = ("router", "a_log", "dt_bias", "d_skip")
+_SSD_LEAVES = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
+               "norm_w", "out_proj")
+
+
+def hybrid_moe_params(cfg: HybridMoEConfig, weights: dict) -> dict:
+    """The param tree of a ``hybrid_moe`` model from a checkpoint's layout:
+    ``embed``, ``final_norm`` and ``layers``, a dict a layer in the
+    published order with its ``kind`` ("mamba" or "attention"),
+    ``input_layernorm`` and ``post_attention_layernorm``, the mixer's
+    matrices (the SSD's as ``ssm_init`` names them; ``wq``, ``wk``, ``wv``,
+    ``wo``), ``router``, ``experts_gate``, ``experts_up`` and
+    ``experts_down`` (an expert a row) and ``shared_gate``, ``shared_up``
+    and ``shared_down``.  Each leaf takes the dtype the port keeps it in
+    (the router and the SSD's A, dt bias and D float32, the rest
+    ``cfg.adtype``), without a copy where it has it."""
+    pattern = cfg.layer_pattern
+    kinds = [lp["kind"] for lp in weights["layers"]]
+    if kinds != list(pattern) * (cfg.num_layers // len(pattern)):
+        raise ValueError(f"layers {kinds} for {cfg.num_layers} layers of "
+                         f"the pattern {pattern}")
+
+    def leaf(lp, k):
+        return lp[k].to(torch.float32 if k in _HYBRID_FLOAT32
+                        else cfg.adtype)
+
+    blocks = []
+    for b in range(0, cfg.num_layers, len(pattern)):
+        block = {"ssm": [], "attn_layers": []}
+        for lp in weights["layers"][b:b + len(pattern)]:
+            if lp["kind"] == "mamba":
+                layer = {k: leaf(lp, k) for k in _SSD_LEAVES}
+                layer["ln"] = leaf(lp, "input_layernorm")
+                block["ssm"].append(layer)
+            else:
+                layer = {"attn": {k: leaf(lp, k)
+                                  for k in ("wq", "wk", "wv", "wo")},
+                         "ln1": leaf(lp, "input_layernorm")}
+                block["attn_layers"].append(layer)
+            layer["ln2"] = leaf(lp, "post_attention_layernorm")
+            layer["ffn"] = {
+                "moe": {"router": leaf(lp, "router"),
+                        "wi_up": leaf(lp, "experts_up"),
+                        "wo": leaf(lp, "experts_down"),
+                        "wi_gate": leaf(lp, "experts_gate")},
+                "shared": {"wi_up": leaf(lp, "shared_up"),
+                           "wo": leaf(lp, "shared_down"),
+                           "wi_gate": leaf(lp, "shared_gate")}}
+        blocks.append(block)
+    return {"embed": leaf(weights, "embed"), "layers": blocks,
+            "final_norm": leaf(weights, "final_norm")}
+
+
 def _layer_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
     _, plan = _block_structure(cfg)
     d = cfg.d_model
+    if cfg.family == "hybrid_moe":
+        return _hybrid_moe_init(cfg, gen)
 
     def ones():
         return torch.ones((d,), dtype=cfg.adtype, device=gen.device)
@@ -116,12 +225,15 @@ def _layer_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 def _attn_sublayer(cfg, p, x, positions, kv_cache=None, cache_len=None):
     """Returns (x, aux): aux is the MoE's load-balance loss, else 0.0."""
-    h, _ = attn_forward(cfg, p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
-                        positions, kv_cache=kv_cache, cache_len=cache_len)
+    with trace.span("lm.attn"):
+        h, _ = attn_forward(cfg, p["attn"],
+                            rmsnorm(x, p["ln1"], cfg.norm_eps), positions,
+                            kv_cache=kv_cache, cache_len=cache_len)
     x = x + h
     hn = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        y, aux = moe_mod.moe_forward(cfg, p["ffn"], hn)
+        with trace.span("lm.moe"):
+            y, aux = moe_mod.moe_forward(cfg, p["ffn"], hn)
     else:
         y, aux = mlp_forward(cfg, p["ffn"], hn), 0.0
     return x + y, aux
@@ -138,15 +250,12 @@ def _block_forward(cfg: ModelConfig, p: dict, x, positions, *, frontend=None,
     groups the block has) with a leading sub-layer axis, written in
     place.  Cross-attention runs only when ``frontend`` is given.
     Returns (x, aux)."""
+    if cfg.family == "hybrid_moe":
+        return _hybrid_moe_block(cfg, p, x, positions, cache, cache_len)
     aux = 0.0
     for i, sp in enumerate(p.get("ssm", ())):
         st = None if cache is None else _sub(cache["ssm"], i)
-        h, new = ssm_mod.ssm_forward(cfg, sp, rmsnorm(x, sp["ln"],
-                                                      cfg.norm_eps), state=st)
-        x = x + h
-        if st is not None:
-            for n, c in st.items():
-                c.copy_(new[n])
+        x = x + _ssm_mixer(cfg, sp, x, st)
     if "cross" in p and frontend is not None:
         B = x.shape[0]
         fe = frontend.to(p["kx"].dtype)
@@ -164,6 +273,48 @@ def _block_forward(cfg: ModelConfig, p: dict, x, positions, *, frontend=None,
         kv = None if cache is None else _sub(cache["kv"], i)
         x, a = _attn_sublayer(cfg, ap, x, positions, kv_cache=kv,
                               cache_len=cache_len)
+        aux = aux + a
+    return x, aux
+
+
+def _ssm_mixer(cfg: ModelConfig, sp: dict, x, st):
+    """An SSD layer's output from ``rms(x)``; ``st`` (its cache views, or
+    None) is written in place."""
+    with trace.span("lm.ssm"):
+        h, new = ssm_mod.ssm_forward(cfg, sp, rmsnorm(x, sp["ln"],
+                                                      cfg.norm_eps), state=st)
+        if st is not None:
+            for n, c in st.items():
+                c.copy_(new[n])
+    return h
+
+
+def _hybrid_moe_block(cfg: HybridMoEConfig, p: dict, x, positions, cache,
+                      cache_len):
+    """One period of a ``hybrid_moe`` model, its layers in the pattern's
+    order: x ← x + r·mixer(rms(x)), then x ← x + r·(moe(rms(x)) +
+    shared(rms(x)))."""
+    r, eps = cfg.residual_multiplier, cfg.norm_eps
+    aux, n_ssm, n_attn = 0.0, 0, 0
+    for kind in cfg.layer_pattern:
+        if kind == "mamba":
+            lp = p["ssm"][n_ssm]
+            st = None if cache is None else _sub(cache["ssm"], n_ssm)
+            n_ssm += 1
+            h = _ssm_mixer(cfg, lp, x, st)
+        else:
+            lp = p["attn_layers"][n_attn]
+            kv = None if cache is None else _sub(cache["kv"], n_attn)
+            n_attn += 1
+            with trace.span("lm.attn"):
+                h, _ = attn_forward(cfg, lp["attn"],
+                                    rmsnorm(x, lp["ln1"], eps), positions,
+                                    kv_cache=kv, cache_len=cache_len)
+        x = x + h * r
+        with trace.span("lm.moe"):
+            y, a = moe_mod.shared_forward(cfg, lp["ffn"],
+                                          rmsnorm(x, lp["ln2"], eps))
+        x = x + y * r
         aux = aux + a
     return x, aux
 
@@ -267,7 +418,9 @@ def _embed(cfg, params, tokens=None, embeds=None):
         return embeds.to(cfg.adtype)
     R = sh.ranks()
     if R is None:
-        return params["embed"][tokens]
+        x = params["embed"][tokens]
+        m = cfg.embedding_multiplier
+        return x if m == 1 else x * m
     embed = _top(params, _placements(cfg), "embed")
     if not R.split(cfg.vocab_size):
         x = embed[tokens]
@@ -292,7 +445,8 @@ def _logits(cfg, params, x):
     if R is None:
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return (x @ head).float()
+        c = cfg.logits_scaling
+        return (x @ head).float() if c == 1 else (x @ head).float() / c
     pl = _placements(cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = (_top(params, pl, "embed").T if cfg.tie_embeddings
@@ -425,7 +579,7 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     if plan["ssm"]:
         st = ssm_mod.ssm_init_state(cfg, batch, cfg.adtype, "meta")
         c["ssm"] = {n: torch.empty((nb, plan["ssm"]) + t.shape,
-                                   dtype=cfg.adtype, device="meta")
+                                   dtype=t.dtype, device="meta")
                     for n, t in st.items()}
     return c
 

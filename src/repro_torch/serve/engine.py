@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.params import toy_params
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as sh
@@ -288,6 +289,15 @@ class ContinuousBatcher:
     accumulate in ``secure_results``; per-step launch/dedup stats in
     ``secure.batcher.steps``.  The model, its cache and the sampling
     inputs live on the parameters' device.
+
+    ``step()`` opens a scope (``core/trace.py``) on the batcher's own
+    ``counters``: span ``lm.prefill`` a request admitted, ``lm.step`` the
+    decode step after admission (the secure flush, the model, the logits'
+    copy to the host and the sampling), the model's spans inside them
+    (``lm.ssm``, ``lm.attn``, ``lm.moe``), counter ``lm.tokens`` (tokens
+    decoded) and ``lm.moe.dropped`` (routed pairs past an expert's
+    capacity, a device tensor).  ``last_logits`` holds the last decode
+    step's float32 logits on the host, a row a slot.
     """
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params,
@@ -309,6 +319,8 @@ class ContinuousBatcher:
         self.secure_results: dict[int, list] = {}
         self._next_id = 0
         self._rng = np.random.default_rng(scfg.seed)
+        self.counters: dict = {}
+        self.last_logits: Optional[np.ndarray] = None
 
     def submit(self, prompt_tokens: np.ndarray, max_new: int,
                tenant: str = "default") -> int:
@@ -338,8 +350,9 @@ class ContinuousBatcher:
                 cache1 = tf.init_cache(self.cfg, 1, self.scfg.max_len,
                                        device=self.device)
                 prompt = torch.as_tensor(req["prompt"], device=self.device)
-                logits, cache1 = tf.prefill(self.cfg, self.params,
-                                            prompt[None], cache1)
+                with trace.span("lm.prefill"):
+                    logits, cache1 = tf.prefill(self.cfg, self.params,
+                                                prompt[None], cache1)
                 j = i - self._first          # the slot on this rank
                 if 0 <= j < self._per:
                     for g, tree in self.cache.items():   # kv and ssm leaves
@@ -377,10 +390,18 @@ class ContinuousBatcher:
 
     def step(self) -> bool:
         """One decode step over all active slots. Returns False when idle."""
-        self._admit()
-        active = [i for i, s in enumerate(self.slots) if s is not None]
-        if not active:
-            return False
+        with trace.scope(self.counters):
+            self._admit()
+            active = [i for i, s in enumerate(self.slots) if s is not None]
+            if not active:
+                return False
+            with trace.span("lm.step"):
+                self._decode(active)
+            trace.count("lm.tokens", len(active))
+        return True
+
+    def _decode(self, active: list) -> None:
+        """The decode step of the ``active`` slots, sampled."""
         if self.secure is not None:
             self._secure_step(active)
         toks = np.zeros((self.scfg.max_batch, 1), np.int64)
@@ -402,7 +423,7 @@ class ContinuousBatcher:
         else:
             logits, self.cache = tf.decode_step(self.cfg, self.params, toks,
                                                 self.cache, pos)
-        logits = logits[:, 0].cpu().numpy()
+        logits = self.last_logits = logits[:, 0].cpu().numpy()
         for i in active:
             s = self.slots[i]
             s["last"] = self._sample(logits[i])
@@ -411,4 +432,3 @@ class ContinuousBatcher:
             self.results[s["id"]].append(s["last"])
             if s["done"] >= s["max_new"] or s["pos"] >= self.scfg.max_len - 1:
                 self.slots[i] = None
-        return True
